@@ -9,7 +9,8 @@ no result line):
 
 1. device and build: the card's name and power limit, torch and CUDA
    versions, the kernel's nvcc build time and ptxas register / shared
-   memory / spill report;
+   memory / spill report, and the compiled instructions of one word-step
+   per pipe (``kernels/fhp_step/opcount.py``), which set its bound;
 2. parity sweep: the kernel against ``fhp_step_ref`` on the card, bit for
    bit, over fhp2/fhp3/bml x T in {1,2,4,8} x B in {1,3} x p_force in
    {0, 0.05} x three tiles, static-solid included (``kernels/fhp_step/
@@ -25,6 +26,7 @@ no result line):
 
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
 """
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -38,9 +40,6 @@ LANES, HEIGHT, WIDTH = 4, 4096, 32768
 STEPS, T_MAIN, P_FORCE = 64, 8, 0.03
 SWEEP_H, SWEEP_WD = 256, 125
 HBM_BYTES_PER_S = 3.35e12
-# 64 INT32 lanes per SM, one op per clock: a quarter of the 67 TFLOP/s
-# float32 peak (128 lanes x 2 flops per FMA) of the H100 SXM.
-INT_OPS_PER_S = 67e12 / 4
 
 
 def _card() -> str:
@@ -51,44 +50,21 @@ def _card() -> str:
     return out.strip().splitlines()[0]
 
 
-def _ops_per_word_step(variant, p_force, record_frac, stack_planes):
-    """Integer operations of one word-step of the kernel: the taps' shifts
-    and selects, the chirality hash, the Bernoulli rounds, the generated
-    collide and force circuits, and the moment popcounts."""
-    from repro_torch.core import prng, rulespec
-    from repro_torch.kernels.fhp_step import codegen
-    spec = rulespec.get_rule(variant)
-    hash_ops = 11            # counter (mul, add), xor with t, finalizer 8
-    n = 0
-    for tap in spec.taps:
-        (dx0, _), (dx1, _) = tap.offsets
-        n += 3 * (dx0 != 0 or dx1 != 0) + (dx0 != dx1)
-    circ = codegen.circuit_ops(variant)
-    n += circ["collide"] + (hash_ops if spec.needs_rng else 0)
-    pq = prng.quantize_p(p_force)
-    if 0 < pq < 1 << prng.BERNOULLI_BITS:
-        last = (pq & -pq).bit_length() - 1
-        for i in range(prng.BERNOULLI_BITS - 1, last - 1, -1):
-            n += hash_ops + (3 if (pq >> i) & 1 else 2)
-        n += circ["force"]
-    ms = rulespec.moment_spec(spec, stack_planes)
-    n += record_frac * sum(len(t) for t in ms.terms)
-    return n
-
-
-def _bound_ms(x, T, n_rec, static):
-    """(int-ops ms, bytes ms) of one fhp2 launch on stack ``x``: each plane
-    word read and written once (plus the solid plane and the moments), and
-    the operations of ``_ops_per_word_step`` for every word-step."""
+def _bound_ms(x, T, n_rec, static, counted):
+    """(ops ms, the pipe that sets it, bytes ms) of one fhp2 launch on
+    stack ``x``: the compiled instructions of every word-step
+    (``opcount``), and each plane word read and written once (plus the
+    solid plane and the moments)."""
     from repro_torch.core import rulespec
+    from repro_torch.kernels.fhp_step import opcount
     lanes, nps, h, wd = x.shape
-    n_ops = lanes * h * wd * T * _ops_per_word_step("fhp2", P_FORCE,
-                                                    n_rec / T, nps)
+    ops_ms, pipe = opcount.ops_ms(
+        lanes * h * wd * T, opcount.per_word_step(counted, n_rec / T))
     n_moments = rulespec.moment_spec(rulespec.get_rule("fhp2"),
                                      nps).n_moments
     n_bytes = 4 * (2 * x.numel() + (h * wd if static else 0)
                    + lanes * n_rec * n_moments)
-    return n_ops / INT_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return ops_ms, pipe, n_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def _time_ms(fn, reps, warmup=2):
@@ -111,8 +87,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch import scenarios
-    from repro_torch.core import distributed, rulespec
-    from repro_torch.kernels.fhp_step import build, check, ops, ref
+    from repro_torch.core import distributed, prng, rulespec
+    from repro_torch.kernels.fhp_step import build, check, opcount, ops, ref
 
     dev = torch.device("cuda")
     card = _card()
@@ -121,7 +97,11 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     # -- 1. build ---------------------------------------------------------
-    build.library()
+    # The kernel and the instruction-count probes compile side by side.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        probes = pool.submit(opcount.counts, prng.quantize_p(P_FORCE))
+        build.library()
+        counted = probes.result()
     info = build.BUILD_INFO
     if not info:
         print(f"[build] reused {build.library_path()}")
@@ -130,6 +110,10 @@ def main() -> int:
     for line in info.get("ptxas", "").splitlines():
         if "Used" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    step, terms = counted["step"], counted["terms"]
+    print(f"[bound] compiled fhp2 word-step at p_force {P_FORCE}, per pipe: "
+          f"{step}; moment terms per word: {terms}; opcodes of the "
+          f"even-row probe: {counted['opcodes']}")
 
     # -- 2. parity sweep ------------------------------------------------------
     t = time.perf_counter()
@@ -217,15 +201,16 @@ def main() -> int:
         k_ms = _time_ms(lambda: ops.fhp_step_cuda(x, 0, **kw), reps=20)
         p_ms = _time_ms(lambda: ref.fhp_step_ref(x, 0, **kw), reps=2,
                         warmup=1)
-        ops_ms, bytes_ms = _bound_ms(x, T, len(rec), static)
-        results[label] = (k_ms, p_ms, ops_ms, bytes_ms)
+        ops_ms, pipe, bytes_ms = _bound_ms(x, T, len(rec), static, counted)
+        results[label] = (k_ms, p_ms, ops_ms, bytes_ms, pipe)
         print(f"[time] {card} | {label}: kernel {k_ms:.4f} ms/launch "
               f"({sites * T / (k_ms * 1e-3):.4e} site-updates/s), plain "
               f"{p_ms:.2f} ms/launch, bound {max(ops_ms, bytes_ms):.4f} ms "
-              f"(int ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms)")
+              f"(instructions {ops_ms:.4f} ms, set by {pipe}; bytes "
+              f"{bytes_ms:.4f} ms)")
     del dyn
 
-    k_ms, p_ms, ops_ms, bytes_ms = results[f"T={T_MAIN}"]
+    k_ms, p_ms, ops_ms, bytes_ms, pipe = results[f"T={T_MAIN}"]
     print(f"[time] {card} | main path: {launches} launches x {k_ms:.4f} ms "
           f"= {launches * k_ms / (main_s * 1e3):.4f} of its {main_s:.4f} s "
           f"wall time busy in the kernel")
@@ -236,6 +221,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_pipe": pipe if ops_ms >= bytes_ms else "memory",
         "library_ms": None, "checked_vs_plain": True,
         "modes": ["periodic", "tiles", "moments", "static_solid"],
         "card": card}]}))

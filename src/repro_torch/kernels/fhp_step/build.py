@@ -28,14 +28,15 @@ BUILD_INFO: dict = {}
 _LIB = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(name)
     if found:
         return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    default = pathlib.Path("/usr/local/cuda/bin") / name
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernel is built on a "
+    raise RuntimeError(f"{name} not found: the CUDA kernel is built on a "
                        "machine with the CUDA toolkit")
 
 
@@ -53,7 +54,8 @@ def build() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "fhp_step.cu")]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / "fhp_step.cu")]
     t = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t

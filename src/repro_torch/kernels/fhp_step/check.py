@@ -1,12 +1,13 @@
 """Bit-exact parity sweep of the CUDA kernel against its plain version.
 
 Each case runs ``ops.run_cuda`` (the kernel on a CUDA tensor) and the same
-launch schedule through ``ref.fhp_step_ref`` on the same device, over
-three tiles -- ``pick_tile``'s, a full-width row band, and a (24, 13) tile
-that divides neither axis -- with odd ``y0``, nonzero ``xw0`` and ``t0``,
-``2T + 1`` steps (so one remainder launch) and a moments cadence from
-{1, 3, T}.  FHP cases also run the static-solid layout and hold it against
-the 8-plane run.  Used by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
+steps through ``ref.fhp_step_ref``, one step per call, on the same device,
+over three tiles -- ``pick_tile``'s, a full-width row band, and a (24, 13)
+tile that divides neither axis -- with odd ``y0``, nonzero ``xw0`` and
+``t0``, ``2T + 1`` steps (so one remainder launch) and a moments cadence
+from {1, 3, T}.  FHP cases also run the static-solid layout and hold it
+against the 8-plane run.  Used by ``chip_smoke.py`` and
+``tests/test_torch_gpu.py``.
 """
 from __future__ import annotations
 
@@ -46,20 +47,16 @@ def first_difference(a: torch.Tensor, b: torch.Tensor
     return None if diff.numel() == 0 else tuple(diff[0].tolist())
 
 
-def _run_plain(planes, steps, T, k, solid=None, **kw):
-    """``ops.run_cuda``'s launch schedule through the plain version."""
-    full, rem = divmod(steps, T)
-    sizes = [T] * full + ([rem] if rem else [])
-    out, moms, done = planes, [], 0
-    for L, rs in zip(sizes, ops._launch_schedule(sizes, 0, k)):
-        res = fhp_step_ref(out, T0 + done, steps_per_launch=L, solid=solid,
-                           record_steps=rs, **kw)
-        if rs:
-            out, m = res
-            moms.append(m)
+def _run_plain(planes, steps, k, **kw):
+    """``steps`` plain steps from ``T0``, one at a time, with the moments
+    after every ``k``-th: independent of ``ops``' launch schedule."""
+    out, moms = planes, []
+    for i in range(steps):
+        if (i + 1) % k:
+            out = fhp_step_ref(out, T0 + i, **kw)
         else:
-            out = res
-        done += L
+            out, m = fhp_step_ref(out, T0 + i, record_steps=(0,), **kw)
+            moms.append(m)
     return out, torch.cat(moms, dim=-2)
 
 
@@ -82,7 +79,7 @@ def run_case(case: Case, device, h: int, wd: int, seed: int = 0
         got, gm = ops.run_cuda(planes, steps, t0=T0, steps_per_launch=T,
                                moments_every=k, block_rows=tile[0],
                                block_words=tile[1], **kw)
-        want, wm = _run_plain(planes, steps, T, k, **kw)
+        want, wm = _run_plain(planes, steps, k, **kw)
         for name, a, b in (("planes", got, want), ("moments", gm, wm)):
             where = first_difference(a, b)
             if where is not None:

@@ -18,11 +18,14 @@
 //
 // What bounds it on the H100: per launch each plane word is read once and
 // written once (NPS * 4 bytes per word, over T steps), while each
-// word-step costs ~300 integer instructions (the generated collision
-// circuit, the chirality hash and up to 16 hashed Bernoulli rounds).  At
-// T = 8 the operation count, not the 3.35 TB/s of device memory, is the
-// bound; the apron adds (bh+2T)(bw+2T)/(bh*bw) redundant work per step.
-// This first version keeps the design simple; PERF.md holds its times.
+// word-step issues the compiled instructions of word_step (fhp_step.cuh:
+// the taps, the chirality hash, the collision circuit and up to 16 hashed
+// Bernoulli rounds).  kernels/fhp_step/opcount.py counts them per pipe
+// from the sm_90a SASS of op_count.cu, and chip_smoke.py prints the count
+// and the bound it sets; PERF.md keeps both.  At T = 8 the integer
+// instructions, not the 3.35 TB/s of device memory, are the bound; the
+// apron adds (bh+2T)(bw+2T)/(bh*bw) redundant work per step.  This first
+// version keeps the design simple; PERF.md holds its times.
 #include <cuda_runtime.h>
 
 #include "fhp_step.cuh"
@@ -33,9 +36,9 @@ static const int THREADS = 256;
 
 template <class Rule, bool STATIC>
 __global__ void __launch_bounds__(THREADS) fhp_step_kernel(Params P) {
-  extern __shared__ uint32_t smem[];
-  __shared__ int blk[MAX_TERMS];
   typedef Moments<Rule, STATIC> M;
+  extern __shared__ uint32_t smem[];
+  __shared__ int blk[M::N_TERMS];
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
   Tile tl = make_tile(P, blockIdx.x, blockIdx.y, blockIdx.z);
   uint32_t* buf[2] = {smem, smem + NPS * tl.RW};
@@ -46,7 +49,7 @@ __global__ void __launch_bounds__(THREADS) fhp_step_kernel(Params P) {
   if (STATIC)
     for (int i = threadIdx.x; i < tl.RW; i += blockDim.x)
       load_solid_elem(P, tl, sol, i);
-  if (threadIdx.x < MAX_TERMS) blk[threadIdx.x] = 0;
+  if (threadIdx.x < M::N_TERMS) blk[threadIdx.x] = 0;
   __syncthreads();
 
   for (int s = 0; s < P.T; ++s) {

@@ -39,8 +39,6 @@ static __host__ __device__ __forceinline__ uint32_t popc32(uint32_t v) {
 
 namespace fhp {
 
-static const int MAX_TERMS = 8;  // moment terms of any rule (fhp: 8)
-
 struct Params {
   const uint32_t* in;     // (B, NPS, H, Wd)
   uint32_t* out;          // (B, NPS, H, Wd)
@@ -159,6 +157,21 @@ struct Reader {
   }
 };
 
+// The work of one word-step, from the taps to the forced output planes:
+// streaming reads, chirality hash, collision circuit, Bernoulli rounds and
+// force.  op_count.cu compiles this same function to count it.
+template <class Rule, class Rd>
+static __host__ __device__ __forceinline__ void word_step(
+    const Rd& rd, uint32_t row, uint32_t col, uint32_t t, int pq,
+    uint32_t* o) {
+  uint32_t v[Rule::NTAPS];
+  Rule::taps(rd, v);
+  uint32_t chi = Rule::NEEDS_RNG ? word_u32(row, col, t, 0x11u) : 0u;
+  Rule::collide(v, chi, t, o);
+  if (Rule::HAS_FORCE && pq > 0)
+    Rule::force(o, bernoulli_word(row, col, t, pq));
+}
+
 // Step phase s, element i of [0, (R-2s-2) * (W-2s-2)): one output word.
 template <class Rule, bool STATIC>
 static __host__ __device__ __forceinline__ void step_elem(
@@ -183,13 +196,8 @@ static __host__ __device__ __forceinline__ void step_elem(
   for (int k = 0; k < 3; ++k)
     rd.odd[k] = (int)((P.y0 + (uint32_t)pmod(ly - (k - 1), P.H)) & 1u);
 
-  uint32_t v[Rule::NTAPS];
-  Rule::taps(rd, v);
-  uint32_t chi = Rule::NEEDS_RNG ? word_u32(row, col, t, 0x11u) : 0u;
   uint32_t o[Rule::NP];
-  Rule::collide(v, chi, t, o);
-  if (Rule::HAS_FORCE && P.pq > 0)
-    Rule::force(o, bernoulli_word(row, col, t, P.pq));
+  word_step<Rule>(rd, row, col, t, P.pq, o);
   for (int p = 0; p < NPS; ++p) nxt[p * tl.RW + r * tl.W + c] = o[p];
 }
 

@@ -3,6 +3,7 @@
 ``run_pallas`` in interpret mode and ``run_planes_rule``; the kernel's own
 per-element body (``csrc/fhp_step.cuh``) compiled with g++ and run
 serially against the plain version; the generated rule circuits; the
+card's parity sweep and the instruction counter on canned input; the
 argument checks and the device dispatch.
 """
 import ctypes
@@ -18,7 +19,7 @@ import torch
 from repro.core import rulespec as jrulespec
 from repro.kernels.fhp_step.ops import run_pallas
 from repro_torch.core import carry, prng, rulespec
-from repro_torch.kernels.fhp_step import codegen, ops
+from repro_torch.kernels.fhp_step import check, codegen, opcount, ops
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 
 CPU = torch.device("cpu")
@@ -258,3 +259,66 @@ def test_pick_tile_and_shared_memory():
         assert T <= bh and (bw >= wd or T <= bw)
     with pytest.raises(ValueError, match="no valid tile"):
         ops.pick_tile(4, 64, 8)
+
+
+# ---------------------------------------------------------------------------
+# The card's parity sweep and the bound's instruction counter, on the CPU.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [check.Case("fhp2", 2, 1, 0.05),
+                                  check.Case("fhp3", 1, 3, 0.05),
+                                  check.Case("bml", 3, 1, 0.0)], ids=str)
+def test_parity_sweep_case_on_cpu(case):
+    # run_cuda's launch schedule against one plain step per call.
+    assert check.run_case(case, CPU, h=30, wd=15) == []
+
+
+def _sass(funcs):
+    """``cuobjdump -sass`` text: each function's ops between one load and
+    one store of ``copy``'s shape, with the encoding lines."""
+    lines = ["\tcode for sm_90a"]
+    for name, body in funcs.items():
+        lines.append(f"\t\tFunction : {name}")
+        insns = (["LDC R1, c[0x0][0x28] ;", "S2R R7, SR_TID.X ;",
+                  "IMAD.WIDE R2, R7, 0x4, R2 ;",
+                  "LDG.E R5, desc[UR4][R2.64] ;"]
+                 + body + ["STG.E desc[UR4][R4.64], R5 ;", "EXIT ;",
+                           "BRA 0x90;"])
+        for i, insn in enumerate(insns):
+            lines += [f"        /*{16 * i:04x}*/                   {insn}"
+                      "   /* 0x000fe40000000800 */",
+                      " " * 60 + "/* 0x000fe40000000800 */"]
+    return "\n".join(lines)
+
+
+def test_sass_counts_by_pipe():
+    step = ["LOP3.LUT R5, R5, R6, R7, 0x96, !PT ;",
+            "SHF.R.U32.HI R6, RZ, 0x10, R5 ;",
+            "IMAD R5, R5, -0x7a143595, RZ ;",
+            "@!P0 IADD3 R5, R5, 0x1, RZ ;",
+            "UIMAD UR4, UR4, -0x61c88647, URZ ;"]
+    sass = _sass({"copy": [],
+                  "step_even": step,
+                  "step_odd": step + ["LOP3.LUT R5, R5, R6, RZ, 0x3c, !PT ;"],
+                  "terms": ["LOP3.LUT R6, R5, R6, RZ, 0xc0, !PT ;",
+                            "POPC R6, R6 ;", "IADD3 R8, R8, R6, RZ ;"]})
+    assert opcount.parse_sass(sass)["step_even"]["LOP3"] == 1
+    c = opcount.word_step_counts(sass)
+    assert c["step"] == {"alu": 3.5, "fma": 1, "popc": 0, "other": 1}
+    assert c["terms"] == {"alu": 2, "fma": 0, "popc": 1, "other": 0}
+    assert opcount.per_word_step(c, 0.5) == {"alu": 4.5, "fma": 1,
+                                            "popc": 0.5, "other": 1}
+    for bad in (["BRA 0x10;"], ["LDL R5, [R1] ;"]):
+        with pytest.raises(RuntimeError, match="straight-line"):
+            opcount.word_step_counts(sass + "\n" + _sass({"copy": bad}))
+
+
+def test_ops_ms_takes_the_slowest_pipe():
+    clocks = opcount.SM_CLOCKS_PER_S          # one SM-clock summed: 1 s
+    assert opcount.ops_ms(clocks, {"alu": 64, "fma": 0, "popc": 0,
+                                   "other": 0}) == (1000.0, "alu")
+    assert opcount.ops_ms(clocks, {"alu": 32, "fma": 32, "popc": 8,
+                                   "other": 56}) == (1000.0, "issue")
+    ms, pipe = opcount.ops_ms(clocks, {"alu": 10, "fma": 10, "popc": 32,
+                                       "other": 0})
+    assert (ms, pipe) == (2000.0, "popc")

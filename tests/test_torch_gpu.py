@@ -10,8 +10,8 @@ the same tests; without a card they skip.
 import pytest
 import torch
 
-from repro_torch.core import distributed, rulespec
-from repro_torch.kernels.fhp_step import check, ops
+from repro_torch.core import distributed, prng, rulespec
+from repro_torch.kernels.fhp_step import check, opcount, ops
 
 pytestmark = pytest.mark.gpu
 
@@ -45,3 +45,11 @@ def test_main_path_counts_launches(cuda):
     assert mom.shape == (2, 4, rulespec.moment_spec(
         rulespec.get_rule("fhp3")).n_moments)
 
+
+
+def test_compiled_word_step_is_counted(cuda):
+    # The probes compile to straight-line code (counts raises otherwise).
+    c = opcount.counts(prng.quantize_p(0.03))
+    assert c["step"]["alu"] > 50 and c["step"]["fma"] > 0
+    assert c["terms"]["popc"] == len(rulespec.moment_spec(
+        rulespec.get_rule("fhp2")).terms)
