@@ -68,14 +68,22 @@ def build() -> pathlib.Path:
     return out
 
 
+def launch_argtypes() -> list:
+    """ctypes argument types of ``fhp_step_launch`` less its stream (the
+    arguments of ``csrc/host_emulate.cpp``'s ``fhp_step_host``): six
+    pointers (in, out, solid, chi, acc, moments), rule, mode, B, H, Wd, bh,
+    bw, T, the unsigned t0, then y0, xw0, hg, wdg, r0, r1, c0, c1, pq and
+    record_mask."""
+    vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    return [vp] * 6 + [i] * 8 + [u] + [i] * 10
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.fhp_step_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
-                                        u, u, u, i, i, vp]
+        lib.fhp_step_launch.argtypes = launch_argtypes() + [ctypes.c_void_p]
         lib.fhp_step_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB

@@ -11,8 +11,8 @@ namespace {
 
 using namespace fhp;
 
-template <class Rule, bool STATIC>
-void run_blocks(const Params& P) {
+template <class Rule, bool STATIC, int MODE>
+int run_blocks(const Params& P) {
   typedef Moments<Rule, STATIC> M;
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
   int nbx = (P.Wd + P.bw - 1) / P.bw, nby = (P.H + P.bh - 1) / P.bh;
@@ -23,14 +23,15 @@ void run_blocks(const Params& P) {
         Tile tl = make_tile(P, bx, by, bz);
         uint32_t* buf[2] = {smem.data(), smem.data() + NPS * tl.RW};
         uint32_t* sol = smem.data() + 2 * NPS * tl.RW;
-        for (int i = 0; i < NPS * tl.RW; ++i) load_elem<NPS>(P, tl, buf[0], i);
+        for (int i = 0; i < NPS * tl.RW; ++i)
+          load_elem<NPS, MODE>(P, tl, buf[0], i);
         if (STATIC)
-          for (int i = 0; i < tl.RW; ++i) load_solid_elem(P, tl, sol, i);
+          for (int i = 0; i < tl.RW; ++i) load_solid_elem<MODE>(P, tl, sol, i);
         for (int s = 0; s < P.T; ++s) {
           int n = (tl.R - 2 * s - 2) * (tl.W - 2 * s - 2);
           for (int i = 0; i < n; ++i)
-            step_elem<Rule, STATIC>(P, tl, s, i, buf[s & 1],
-                                    buf[(s + 1) & 1], sol);
+            step_elem<Rule, STATIC, MODE>(P, tl, s, i, buf[s & 1],
+                                          buf[(s + 1) & 1], sol);
           if ((P.record_mask >> s) & 1) {
             int cnt[M::N_TERMS] = {0};
             for (int i = 0; i < P.bh * P.bw; ++i)
@@ -48,48 +49,41 @@ void run_blocks(const Params& P) {
         for (int i = 0; i < NPS * P.bh * P.bw; ++i)
           store_elem<NPS>(P, tl, buf[P.T & 1], i);
       }
+  return 0;
 }
 
+// The mode combinations fhp_step.cu's launch_rule accepts.
 template <class Rule>
-int run_rule(const Params& P) {
+int run_rule(const Params& P, int mode) {
   if (P.solid) {
     if constexpr (Rule::SOLID >= 0) {
-      run_blocks<Rule, true>(P);
-      return 0;
+      if (mode == PERIODIC) return run_blocks<Rule, true, PERIODIC>(P);
+      if (mode == EXTENDED) return run_blocks<Rule, true, EXTENDED>(P);
     }
     return 1;
   }
-  run_blocks<Rule, false>(P);
-  return 0;
+  if (mode == PERIODIC) return run_blocks<Rule, false, PERIODIC>(P);
+  if (mode == EXTENDED) return run_blocks<Rule, false, EXTENDED>(P);
+  if (mode == PRE_RNG && P.T == 1)
+    return run_blocks<Rule, false, PRE_RNG>(P);
+  return 1;
 }
 
 }  // namespace
 
 // Same arguments as fhp_step_launch, on host pointers, without a stream.
 extern "C" int fhp_step_host(const void* in, void* out, const void* solid,
-                             void* moments, int rule, int B, int H, int Wd,
-                             int bh, int bw, int T, unsigned t0, unsigned y0,
-                             unsigned xw0, int pq, int record_mask) {
-  Params P;
-  P.in = static_cast<const uint32_t*>(in);
-  P.out = static_cast<uint32_t*>(out);
-  P.solid = static_cast<const uint32_t*>(solid);
-  P.moments = static_cast<int32_t*>(moments);
-  P.B = B;
-  P.H = H;
-  P.Wd = Wd;
-  P.bh = bh;
-  P.bw = bw;
-  P.T = T;
-  P.t0 = t0;
-  P.y0 = y0;
-  P.xw0 = xw0;
-  P.pq = pq;
-  P.record_mask = record_mask;
-  P.n_rec = __builtin_popcount((unsigned)record_mask);
+                             const void* chi, const void* acc, void* moments,
+                             int rule, int mode, int B, int H, int Wd, int bh,
+                             int bw, int T, unsigned t0, int y0, int xw0,
+                             int hg, int wdg, int r0, int r1, int c0, int c1,
+                             int pq, int record_mask) {
+  Params P = make_params(in, out, solid, chi, acc, moments, B, H, Wd, bh, bw,
+                         T, t0, y0, xw0, hg, wdg, r0, r1, c0, c1, pq,
+                         record_mask);
 #define FHP_CASE(R) \
   case R::ID:       \
-    return run_rule<R>(P);
+    return run_rule<R>(P, mode);
   switch (rule) { FHP_FOR_EACH_RULE(FHP_CASE) }
 #undef FHP_CASE
   return 1;

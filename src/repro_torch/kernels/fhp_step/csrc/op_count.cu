@@ -6,6 +6,8 @@
 // (-DPROBE_PQ=<quantised p_force>), so each body is straight-line code:
 //   step_even / step_odd  one fhp2 word-step -- word_step, the function the
 //                         kernel runs -- for a centre row of either parity;
+//   pre_even / pre_odd    the same with precomputed random words
+//                         (word_step_pre, kernel mode K2), loaded;
 //   terms                 one word's moment popcount terms (Rule::terms);
 //   copy                  the same thread indexing, loads and stores and
 //                         nothing else, which opcount.py subtracts.
@@ -21,7 +23,7 @@ typedef Rule_fhp2 R;
 const int HOOD = R::NP * 9;  // every plane's 3 x 3 word neighbourhood
 const int N = 32;            // stride between one thread's words
 
-template <int ODD>
+template <int ODD, bool PRE>
 __device__ __forceinline__ void step_probe(const uint32_t* __restrict__ in,
                                            uint32_t* __restrict__ out,
                                            uint32_t t) {
@@ -39,8 +41,12 @@ __device__ __forceinline__ void step_probe(const uint32_t* __restrict__ in,
   rd.odd[0] = rd.odd[2] = !ODD;  // rows r + 1 and r - 1
   rd.odd[1] = ODD;
   uint32_t o[R::NP];
-  fhp::word_step<R>(rd, in[HOOD * N + i], in[(HOOD + 1) * N + i], t,
-                    PROBE_PQ, o);
+  if (PRE)  // the chirality and force words
+    fhp::word_step_pre<R>(rd, in[HOOD * N + i], in[(HOOD + 1) * N + i],
+                          PROBE_PQ > 0, t, o);
+  else      // the row and word counters
+    fhp::word_step<R>(rd, in[HOOD * N + i], in[(HOOD + 1) * N + i], t,
+                      PROBE_PQ, o);
   #pragma unroll
   for (int p = 0; p < R::NP; ++p) out[p * N + i] = o[p];
 }
@@ -49,12 +55,22 @@ __device__ __forceinline__ void step_probe(const uint32_t* __restrict__ in,
 
 extern "C" __global__ void step_even(const uint32_t* __restrict__ in,
                                      uint32_t* __restrict__ out, uint32_t t) {
-  step_probe<0>(in, out, t);
+  step_probe<0, false>(in, out, t);
 }
 
 extern "C" __global__ void step_odd(const uint32_t* __restrict__ in,
                                     uint32_t* __restrict__ out, uint32_t t) {
-  step_probe<1>(in, out, t);
+  step_probe<1, false>(in, out, t);
+}
+
+extern "C" __global__ void pre_even(const uint32_t* __restrict__ in,
+                                    uint32_t* __restrict__ out, uint32_t t) {
+  step_probe<0, true>(in, out, t);
+}
+
+extern "C" __global__ void pre_odd(const uint32_t* __restrict__ in,
+                                   uint32_t* __restrict__ out, uint32_t t) {
+  step_probe<1, true>(in, out, t);
 }
 
 // The counters are loaded, as the kernel's accumulate across words.

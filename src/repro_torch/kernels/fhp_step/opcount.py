@@ -5,6 +5,8 @@ its compiled code, and the least time an H100 needs to issue them.
 (``word_step`` in ``csrc/fhp_step.cuh``: streaming taps, chirality hash,
 collision circuit, Bernoulli rounds, force) and the fhp2 moment terms into
 probes that are straight-line register code for one ``p_force``.
+The same word-step with its random words read from memory
+(``word_step_pre``, kernel mode K2) is counted beside it.
 ``counts`` builds them with ``nvcc -cubin`` for ``sm_90a``, reads their
 SASS with ``cuobjdump`` and sorts each instruction onto the pipe that
 executes it, less the probes' own indexing, loads and stores (the ``copy``
@@ -86,14 +88,19 @@ def pipe_counts(ops: collections.Counter) -> Dict[str, int]:
 
 def word_step_counts(sass: str) -> Dict[str, Dict[str, float]]:
     """Per-pipe instructions of one fhp2 word-step (``step``, the mean of
-    the two row parities) and of one word's moment terms (``terms``), each
-    less the ``copy`` probe; ``opcodes``: the even-row probe's opcodes."""
+    the two row parities), of the same with precomputed random words
+    (``pre``) and of one word's moment terms (``terms``), each less the
+    ``copy`` probe; ``opcodes``: the even-row probe's opcodes."""
     f = parse_sass(sass)
     base = pipe_counts(f["copy"])
-    even, odd, terms = (pipe_counts(f[n])
-                        for n in ("step_even", "step_odd", "terms"))
-    return {"step": {k: max(0.0, (even[k] + odd[k]) / 2 - base[k])
-                     for k in base},
+
+    def mean_of(a, b):
+        a, b = pipe_counts(f[a]), pipe_counts(f[b])
+        return {k: max(0.0, (a[k] + b[k]) / 2 - base[k]) for k in base}
+
+    terms = pipe_counts(f["terms"])
+    return {"step": mean_of("step_even", "step_odd"),
+            "pre": mean_of("pre_even", "pre_odd"),
             "terms": {k: max(0, terms[k] - base[k]) for k in base},
             "opcodes": dict(f["step_even"].most_common())}
 
@@ -118,11 +125,12 @@ def counts(pq: int) -> Dict[str, Dict[str, float]]:
                                   str(cubin)]))
 
 
-def per_word_step(c: Dict[str, Dict[str, float]], record_frac: float
-                  ) -> Dict[str, float]:
-    """Pipe counts of one word-step when a fraction ``record_frac`` of the
-    steps also records moments."""
-    return {k: c["step"][k] + record_frac * c["terms"][k] for k in c["step"]}
+def per_word_step(c: Dict[str, Dict[str, float]], record_frac: float,
+                  step: str = "step") -> Dict[str, float]:
+    """Pipe counts of one word-step (``step``: ``"step"``, or ``"pre"`` for
+    precomputed random words) when a fraction ``record_frac`` of the steps
+    also records moments."""
+    return {k: c[step][k] + record_frac * c["terms"][k] for k in c[step]}
 
 
 def ops_ms(word_steps: float, per_step: Dict[str, float]

@@ -1,26 +1,33 @@
-"""Host wrappers of the fused, temporally blocked FHP step kernel
-(periodic mode).
+"""Host wrappers of the fused, temporally blocked FHP step kernel.
 
 ``fhp_step_cuda`` has the keyword signature of the reference's
 ``repro.kernels.fhp_step.ops.fhp_step_pallas``: ``steps_per_launch`` = T
 fused stream -> collide (-> force) steps in one launch on ``(NPS, H, Wd)``
 or batched ``(B, NPS, H, Wd)`` int32 planes (lanes share the RNG stream),
 ``block_rows``/``block_words`` as the CUDA tile, ``solid=`` for the
-static-geometry layout and ``record_steps`` for fused moments.
+static-geometry layout, ``record_steps`` for fused moments,
+``extended=True`` (with ``hg``/``wdg``) for a halo-extended shard and
+``rng_in_kernel=False`` for one step with precomputed random words.
 ``run_cuda`` advances many steps like ``run_pallas``: ``steps // T`` full
 launches plus one remainder launch, with the moments schedule unrolled.
+``run_extended`` and ``run_extended_split`` advance a halo-extended shard
+like their namesakes in the reference: the sharded stepper's hot path
+(``core.distributed``).
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel
 (``csrc/fhp_step.cu``, built at first use) or raises; a CPU tensor takes
 the plain version (``ref.fhp_step_ref``); any other device raises.
 
 The CUDA tile need not divide the lattice (edge tiles mask their stores
-and moments), so the reference's ``block_words | Wd`` rule is dropped; its
-other argument checks are kept.  Extended-shard mode (K5) and precomputed
-RNG planes (K2) are not ported yet and raise ``NotImplementedError``.
+and moments), so the reference's ``block_words | Wd`` rule and its row and
+word padding in ``run_extended`` are dropped; its other argument checks
+are kept.  The kernel always writes a fresh output, so ``donate`` (the
+reference's in-place carry, a memory saving) is refused.
 """
 from __future__ import annotations
 
+import collections
+import functools
 from typing import Tuple
 
 import torch
@@ -29,13 +36,19 @@ from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import build, codegen
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 
-# Kernel launches since the count was last set to 0 (read by chip_smoke).
+# Kernel launches since the count was last set to 0, in all and by mode
+# ("periodic", "static_solid", "extended", "extended_static_solid",
+# "precomputed_rng"; "moments" counts the launches that record moments
+# besides): read by chip_smoke.
 LAUNCHES = 0
+MODE_LAUNCHES: collections.Counter = collections.Counter()
 
 SMEM_BYTES_PER_BLOCK = 232_448    # H100: 227 KB of shared memory per block
 MAX_TILE = 32
+MAX_STEPS_PER_LAUNCH = 8          # run_extended's default T
 _GRID_YZ_LIMIT = 65_535
 _RULE_ID = {name: i for i, name in enumerate(codegen.RULES)}
+_MODE_ID = {"periodic": 0, "extended": 1, "precomputed_rng": 2}  # its Mode
 
 
 def smem_bytes(bh: int, bw: int, steps: int = 1, static_solid: bool = False,
@@ -87,21 +100,23 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
     solid plane is a read-only operand shared by all lanes.
     ``record_steps`` (in-launch step indices) returns ``(planes, moments)``
     with ``moments`` ``(B?, len(record_steps), n_moments)`` int32, the
-    rule's ``MomentSpec`` after each recorded step."""
+    rule's ``MomentSpec`` after each recorded step, over array rows
+    ``[r0, r1)`` x words ``[c0, c1)`` when ``moment_bounds = (r0, r1, c0,
+    c1)``.
+
+    ``extended`` runs the non-wrapping shard mode on a halo-extended array
+    (kernel mode K5, and K6's extended half with ``solid``): ``hg``/``wdg``
+    are the global lattice extents in rows and words that the RNG reduces
+    ``y0 + row`` and ``xw0 + word`` mod, so apron cells draw the owning
+    shard's stream.  Each launch shrinks the valid region by T rows per
+    side and one lattice column per step.
+
+    ``rng_in_kernel=False`` (kernel mode K2, T = 1) reads the chirality and
+    force words from ``(H, Wd)`` planes that this wrapper draws with
+    ``prng.chirality_words`` / ``bernoulli_words`` on the tensor's device,
+    instead of hashing them in the kernel."""
     global LAUNCHES
     spec = rulespec.get_rule(variant)
-    if not rng_in_kernel:
-        raise NotImplementedError(
-            "rng_in_kernel=False (precomputed RNG planes, kernel mode K2) is "
-            "not ported yet: see ROADMAP.md, 'TPU kernels to port', K2")
-    if extended or hg is not None or wdg is not None \
-            or moment_bounds is not None:
-        raise NotImplementedError(
-            "extended-shard mode (kernel mode K5: hg/wdg/moment_bounds) is "
-            "not ported yet: see ROADMAP.md, 'Modules to port', item 5")
-    if donate:
-        raise ValueError("donate=True needs extended mode (periodic band "
-                         "maps re-read written bands)")
     squeeze = planes.dim() == 3
     if squeeze:
         planes = planes[None]
@@ -125,6 +140,27 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
     T = int(steps_per_launch)
     if not 1 <= T <= 31:      # the kernel's record_mask is a 32-bit int
         raise ValueError(f"steps_per_launch={T} outside [1, 31]")
+    if T != 1 and not rng_in_kernel:
+        raise ValueError("steps_per_launch > 1 requires rng_in_kernel=True "
+                         "(precomputed RNG planes cover a single step)")
+    if static_solid and not rng_in_kernel:
+        raise ValueError("static-solid mode is a fused-path feature "
+                         "(rng_in_kernel=True)")
+    if donate:
+        raise ValueError(
+            "donate=True (in-place update) is not supported: the kernel "
+            "always writes a fresh output and run_extended ping-pongs "
+            "between launches, which costs memory, not results")
+    if extended:
+        if not rng_in_kernel:
+            raise ValueError("extended mode draws global-coordinate RNG "
+                             "in-kernel (rng_in_kernel=True)")
+        if hg is None or wdg is None:
+            raise ValueError("extended mode needs the global extents hg/wdg")
+        if hg < 1 or hg % 2 or wdg < 1:
+            raise ValueError(f"extended mode needs an even hg >= 2 and "
+                             f"wdg >= 1 (row parity must wrap), got "
+                             f"hg={hg}, wdg={wdg}")
     if block_rows and block_words:
         bh, bw = int(block_rows), int(block_words)
     else:
@@ -143,17 +179,40 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
         raise ValueError(f"record_steps {rs} outside [0, {T})")
     if rs:
         ms = rulespec.moment_spec(spec, stack_planes=np_)
-        rulespec.require_moment_headroom(ms, h * wd * 32)
+        rulespec.require_moment_headroom(
+            ms, (hg * wdg if extended else h * wd) * 32)
+    r0, r1, c0, c1 = moment_bounds or (0, h, 0, wd)
+    bounds = (max(r0, 0), min(r1, h), max(c0, 0), min(c1, wd))
+    chi = acc = None
+    if not rng_in_kernel:
+        if spec.needs_rng:
+            chi = prng.chirality_words((h, wd), t, y0=y0, xw0=xw0,
+                                       device=planes.device)
+        if prng.quantize_p(p_force) > 0:
+            acc = prng.bernoulli_words((h, wd), t, p_force, y0=y0, xw0=xw0,
+                                       device=planes.device)
 
     if planes.device.type == "cpu":
         out = fhp_step_ref(planes, t, p_force=p_force, y0=y0, xw0=xw0,
                            variant=variant, steps_per_launch=T, solid=solid,
-                           record_steps=rs)
+                           record_steps=rs, extended=extended, hg=hg,
+                           wdg=wdg, moment_bounds=bounds, chi=chi,
+                           accel=acc)
     elif planes.device.type == "cuda":
-        out = _launch(planes, solid, _RULE_ID[variant], t, y0, xw0, bh, bw,
+        mode = ("extended" if extended else
+                "precomputed_rng" if chi is not None or acc is not None
+                else "periodic")
+        out = _launch(planes, solid, chi, acc, _RULE_ID[variant],
+                      _MODE_ID[mode], t, y0, xw0, hg or 0, wdg or 0, bh, bw,
                       T, prng.quantize_p(p_force), rs,
-                      ms.n_moments if rs else 0)
+                      ms.n_moments if rs else 0, bounds)
         LAUNCHES += 1
+        if static_solid:
+            mode = "static_solid" if mode == "periodic" else \
+                "extended_static_solid"
+        MODE_LAUNCHES[mode] += 1
+        if rs:
+            MODE_LAUNCHES["moments"] += 1
     else:
         raise ValueError(f"fhp_step_cuda runs on CUDA tensors (and its plain "
                          f"version on CPU tensors), not {planes.device}")
@@ -163,8 +222,8 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
     return out[0] if squeeze else out
 
 
-def _launch(planes, solid, rule_id, t, y0, xw0, bh, bw, T, pq, rs,
-            n_moments):
+def _launch(planes, solid, chi, acc, rule_id, mode_id, t, y0, xw0, hg, wdg,
+            bh, bw, T, pq, rs, n_moments, bounds):
     """One kernel launch on CUDA tensors; raises if it is refused."""
     b, _, h, wd = planes.shape
     if -(-h // bh) > _GRID_YZ_LIMIT or b > _GRID_YZ_LIMIT:
@@ -172,11 +231,11 @@ def _launch(planes, solid, rule_id, t, y0, xw0, bh, bw, T, pq, rs,
                          f"exceeds {_GRID_YZ_LIMIT}")
     x = planes.contiguous()
     out = torch.empty_like(x)
-    sol = None
-    if solid is not None:
-        if solid.device != x.device or solid.dtype != torch.int32:
-            raise ValueError(f"solid must be int32 on {x.device}")
-        sol = solid.contiguous()
+    operands = []
+    for name, a in (("solid", solid), ("chi", chi), ("acc", acc)):
+        if a is not None and (a.device != x.device or a.dtype != torch.int32):
+            raise ValueError(f"{name} must be int32 on {x.device}")
+        operands.append(None if a is None else a.contiguous())
     mom = (torch.zeros((b, len(rs), n_moments), dtype=torch.int32,
                        device=x.device) if rs else None)
     mask = sum(1 << s for s in rs)
@@ -184,10 +243,10 @@ def _launch(planes, solid, rule_id, t, y0, xw0, bh, bw, T, pq, rs,
     with torch.cuda.device(x.device):
         err = lib.fhp_step_launch(
             x.data_ptr(), out.data_ptr(),
-            None if sol is None else sol.data_ptr(),
+            *(None if a is None else a.data_ptr() for a in operands),
             None if mom is None else mom.data_ptr(),
-            rule_id, b, h, wd, bh, bw, T, int(t) & 0xFFFFFFFF,
-            int(y0) & 0xFFFFFFFF, int(xw0) & 0xFFFFFFFF, pq, mask,
+            rule_id, mode_id, b, h, wd, bh, bw, T, int(t) & 0xFFFFFFFF,
+            prng.i32(y0), prng.i32(xw0), hg, wdg, *bounds, pq, mask,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fhp_step kernel launch failed: CUDA error {err}")
@@ -241,3 +300,144 @@ def run_cuda(planes: torch.Tensor, steps: int, *, p_force: float = 0.0,
     ms = rulespec.moment_spec(spec, stack_planes=planes.shape[-3])
     return out, torch.zeros(planes.shape[:-3] + (0, ms.n_moments),
                             dtype=torch.int32, device=planes.device)
+
+
+def run_extended(ext: torch.Tensor, steps: int, *, t0: int = 0,
+                 p_force: float = 0.0, y0: int = 0, xw0: int = 0, hg: int,
+                 wdg: int, steps_per_launch: int | None = None,
+                 block_rows: int = 0, block_words: int = 0,
+                 solid_ext: torch.Tensor | None = None,
+                 moments_every: int = 0, moments_offset: int = 0, **kw):
+    """Advance a halo-extended shard array ``steps`` steps in
+    ceil(steps / T) extended-mode launches (T = ``steps_per_launch``,
+    default ``min(steps, 8)``).
+
+    ``ext`` is the ``(..., P, He, Wde)`` shard plus apron; ``y0``/``xw0``
+    are the global coordinates of its element (0, 0), the apron corner.
+    After the call rows ``[steps, He - steps)`` and words ``[1, Wde - 1)``
+    hold the stepped shard (validity shrinks one row per side and one
+    lattice column per step; the usual call has ``He = hl + 2*steps``, so
+    exactly the owned block survives).  The rest is unspecified.
+
+    ``solid_ext`` is the static-geometry cache: the ``(He, Wde)``
+    pre-extended solid plane of this shard's tile; ``ext`` then carries
+    the dynamic planes only.  It holds the true global solid, so one cache
+    serves every launch and round.
+
+    ``block_rows``/``block_words`` (0 = ``pick_tile``'s) are capped to the
+    array.  ``moments_every`` = k > 0 returns ``(ext, moments)``: the
+    rule's ``MomentSpec`` over the final validity window after every step
+    where ``(moments_offset + step + 1) % k == 0`` (``moments_offset``
+    carries the cadence phase across exchange rounds)."""
+    spec = rulespec.get_rule(kw.get("variant", "fhp2"))
+    steps = int(steps)
+    T = int(steps_per_launch or min(steps, MAX_STEPS_PER_LAUNCH))
+    he, wde = ext.shape[-2:]
+    if solid_ext is not None and tuple(solid_ext.shape) != (he, wde):
+        raise ValueError(f"solid_ext {tuple(solid_ext.shape)} != extended "
+                         f"shard {(he, wde)}")
+    bh, bw = int(block_rows), int(block_words)
+    if not (bh and bw):
+        auto = pick_tile(he, wde, min(T, steps), solid_ext is not None,
+                         spec.n_planes)
+        bh, bw = bh or auto[0], bw or auto[1]
+    bh, bw = min(bh, he), min(bw, wde)   # no tile larger than the array
+    full, rem = divmod(steps, T)
+    sizes = [T] * full + ([rem] if rem else [])
+    k = int(moments_every)
+    schedules = (_launch_schedule(sizes, int(moments_offset), k) if k
+                 else [()] * len(sizes))
+    bounds = (steps, he - steps, 1, wde - 1)
+    moms = []
+    done = 0
+    for L, rs in zip(sizes, schedules):
+        res = fhp_step_cuda(ext, t0 + done, p_force=p_force, y0=y0, xw0=xw0,
+                            steps_per_launch=L, block_rows=bh,
+                            block_words=bw, extended=True, hg=hg, wdg=wdg,
+                            solid=solid_ext, record_steps=rs,
+                            moment_bounds=bounds, **kw)
+        if rs:
+            ext, m = res
+            moms.append(m)
+        else:
+            ext = res
+        done += L
+    if not k:
+        return ext
+    if moms:
+        return ext, torch.cat(moms, dim=-2)
+    ms = rulespec.moment_spec(spec, stack_planes=ext.shape[-3])
+    return ext, torch.zeros(ext.shape[:-3] + (0, ms.n_moments),
+                            dtype=torch.int32, device=ext.device)
+
+
+def run_extended_split(ext: torch.Tensor, steps: int, *, t0: int = 0,
+                       p_force: float = 0.0, y0: int = 0, xw0: int = 0,
+                       hg: int, wdg: int, steps_per_launch: int | None = None,
+                       block_rows: int = 0, block_words: int = 0,
+                       solid_ext: torch.Tensor | None = None,
+                       moments_every: int = 0, moments_offset: int = 0,
+                       **kw):
+    """``run_extended`` split into an interior launch plus four thin
+    boundary launches; bit-identical to ``run_extended`` on its validity
+    window.
+
+    ``ext`` is the usual ``(..., He, Wde)`` shard with ``He = hl + 2*steps``
+    and ``Wde = wdl + 2``.  The **interior** launch runs on the bare
+    ``(hl, wdl)`` shard, so it does not read the exchanged apron; four
+    **boundary** launches cover the rest:
+
+    * top / bottom: ``3*steps``-row bands at full extended width; valid
+      output = shard rows ``[0, d)`` / ``[hl - d, hl)``, all words;
+    * left / right: 3-word strips over shard rows ``[d, hl - d)``; valid
+      output = shard word ``0`` / ``wdl - 1``.
+
+    Each piece is ``run_extended`` on a slice with shifted ``y0``/``xw0``
+    (and the slice of ``solid_ext``), and the exact valid pieces are
+    written into a zero array of ``ext``'s shape.  Their moments, counted
+    over disjoint windows that tile the shard, add up to the serial
+    path's.  Degenerate shards (``hl <= 2*steps`` or ``wdl <= 2``) take
+    ``run_extended`` itself.
+
+    The launches are issued in order on the current stream; running the
+    interior launch beside the halo exchange is for a later version."""
+    d = int(steps)
+    he, wde = ext.shape[-2:]
+    hl, wdl = he - 2 * d, wde - 2
+    k = int(moments_every)
+    run = functools.partial(
+        run_extended, t0=t0, p_force=p_force, hg=hg, wdg=wdg,
+        steps_per_launch=steps_per_launch, block_rows=block_rows,
+        block_words=block_words, moments_every=k,
+        moments_offset=moments_offset, **kw)
+    if hl <= 2 * d or wdl <= 2:
+        return run(ext, d, y0=y0, xw0=xw0, solid_ext=solid_ext)
+
+    moms = []
+
+    def sub(rows, words, y_off, xw_off):
+        se = None if solid_ext is None else solid_ext[rows, words]
+        out = run(ext[..., rows, words], d, y0=y0 + y_off, xw0=xw0 + xw_off,
+                  solid_ext=se)
+        if k:
+            out, m = out
+            moms.append(m)
+        return out
+
+    interior = sub(slice(d, he - d), slice(1, wde - 1), d, 1)
+    top = sub(slice(0, 3 * d), slice(None), 0, 0)
+    bot = sub(slice(he - 3 * d, he), slice(None), he - 3 * d, 0)
+    left = sub(slice(d, he - d), slice(0, 3), d, 0)
+    right = sub(slice(d, he - d), slice(wde - 3, wde), d, wde - 3)
+
+    out = torch.zeros_like(ext)
+    inner = slice(1, wde - 1)
+    out[..., d:2 * d, inner] = top[..., d:2 * d, inner]
+    out[..., he - 2 * d:he - d, inner] = bot[..., d:2 * d, inner]
+    mid = slice(2 * d, hl)             # shard rows [d, hl - d)
+    out[..., mid, 1:2] = left[..., d:hl - d, 1:2]
+    out[..., mid, 2:wdl] = interior[..., d:hl - d, 1:wdl - 1]
+    out[..., mid, wdl:wdl + 1] = right[..., d:hl - d, 1:2]
+    if k:
+        return out, functools.reduce(torch.add, moms)
+    return out

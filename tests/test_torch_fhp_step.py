@@ -2,9 +2,10 @@
 (which take the plain version for CPU tensors) against the reference's
 ``run_pallas`` in interpret mode and ``run_planes_rule``; the kernel's own
 per-element body (``csrc/fhp_step.cuh``) compiled with g++ and run
-serially against the plain version; the generated rule circuits; the
-card's parity sweep and the instruction counter on canned input; the
-argument checks and the device dispatch.
+serially against the plain version, in periodic, extended-shard and
+precomputed-RNG mode; the generated rule circuits; the card's parity
+sweep and the instruction counter on canned input; the argument checks
+and the device dispatch.
 """
 import ctypes
 import itertools
@@ -19,7 +20,7 @@ import torch
 from repro.core import rulespec as jrulespec
 from repro.kernels.fhp_step.ops import run_pallas
 from repro_torch.core import carry, prng, rulespec
-from repro_torch.kernels.fhp_step import check, codegen, opcount, ops
+from repro_torch.kernels.fhp_step import build, check, codegen, opcount, ops
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 
 CPU = torch.device("cpu")
@@ -138,24 +139,23 @@ def host_kernel(tmp_path_factory):
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-o",
                     str(lib), str(src)], check=True, timeout=300)
     dll = ctypes.CDLL(str(lib))
-    vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    dll.fhp_step_host.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, u, u,
-                                  u, i, i]
+    dll.fhp_step_host.argtypes = build.launch_argtypes()
     dll.fhp_step_host.restype = ctypes.c_int
     return dll
 
 
 def _host_step(dll, planes, t, variant, T, tile, p_force, y0, xw0, solid,
-               rs):
+               rs, mode=0, hg=0, wdg=0, bounds=None, chi=None, acc=None):
     b, nps, h, wd = planes.shape
     ms = rulespec.moment_spec(rulespec.get_rule(variant), stack_planes=nps)
     out = torch.empty_like(planes)
     mom = torch.zeros((b, len(rs), ms.n_moments), dtype=torch.int32)
+    ptr = [None if a is None else a.data_ptr() for a in (solid, chi, acc)]
     err = dll.fhp_step_host(
-        planes.data_ptr(), out.data_ptr(),
-        None if solid is None else solid.data_ptr(),
-        mom.data_ptr() if rs else None, codegen.RULES.index(variant), b, h,
-        wd, tile[0], tile[1], T, t, y0, xw0, prng.quantize_p(p_force),
+        planes.data_ptr(), out.data_ptr(), *ptr,
+        mom.data_ptr() if rs else None, codegen.RULES.index(variant), mode,
+        b, h, wd, tile[0], tile[1], T, t, y0, xw0, hg, wdg,
+        *(bounds or (0, h, 0, wd)), prng.quantize_p(p_force),
         sum(1 << s for s in rs))
     assert err == 0
     return out, mom
@@ -191,6 +191,65 @@ def test_kernel_body_matches_plain_version(host_kernel, variant, static):
     assert n >= 8
 
 
+@pytest.mark.parametrize("variant,static", [("fhp2", False), ("fhp3", True),
+                                            ("bml", False)])
+def test_kernel_body_extended_mode_matches_plain_version(host_kernel,
+                                                         variant, static):
+    # Shard 0 of a halo-extended array: y0 = -T, xw0 = -1, global extents
+    # larger than the array; only the validity window is specified.
+    spec = rulespec.get_rule(variant)
+    rng = np.random.default_rng(3 + static)
+    h, wd = 24, 13
+    for T, tile, p_force in itertools.product(
+            (1, 3, 8), ((8, 8), (16, 5), (24, 13)), (0.0, 0.05)):
+        if (variant == "bml" and p_force) or T > min(tile):
+            continue
+        w = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                          size=(2, spec.n_planes, h, wd),
+                                          dtype=np.int64).astype(np.int32))
+        solid = None
+        if static:
+            solid = w[0, spec.solid_plane].clone()
+            w = w[:, :spec.solid_plane].contiguous()
+        bounds = (T, h - T, 1, wd - 1)
+        rs = tuple(range(T - 1, -1, -2))
+        glob = dict(extended=True, hg=2 * h + 4, wdg=wd + 3)
+        got, gm = _host_step(host_kernel, w, 11, variant, T, tile, p_force,
+                             -T, -1, solid, rs, mode=1, hg=glob["hg"],
+                             wdg=glob["wdg"], bounds=bounds)
+        want, wm = fhp_step_ref(w, 11, p_force=p_force, y0=-T, xw0=-1,
+                                variant=variant, steps_per_launch=T,
+                                solid=solid, record_steps=rs,
+                                moment_bounds=bounds, **glob)
+        win = (..., slice(T, h - T), slice(1, wd - 1))
+        assert torch.equal(got[win], want[win]), (T, tile, p_force)
+        assert torch.equal(gm, wm), (T, tile, p_force)
+
+
+@pytest.mark.parametrize("variant", codegen.RULES)
+def test_kernel_body_precomputed_rng_matches_plain_version(host_kernel,
+                                                           variant):
+    spec = rulespec.get_rule(variant)
+    rng = np.random.default_rng(len(variant))
+    h, wd = 22, 13
+    for tile, p_force in itertools.product(((8, 8), (22, 5), (16, 13)),
+                                           (0.0, 0.05)):
+        if variant == "bml" and p_force:
+            continue
+        w = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                          size=(2, spec.n_planes, h, wd),
+                                          dtype=np.int64).astype(np.int32))
+        chi = prng.chirality_words((h, wd), 11, y0=7, xw0=5)
+        acc = prng.bernoulli_words((h, wd), 11, p_force, y0=7,
+                                   xw0=5) if p_force else None
+        got, gm = _host_step(host_kernel, w, 11, variant, 1, tile, p_force,
+                             7, 5, None, (0,), mode=2, chi=chi, acc=acc)
+        want, wm = fhp_step_ref(w, 11, p_force=p_force, y0=7, xw0=5,
+                                variant=variant, record_steps=(0,))
+        assert torch.equal(got, want), (tile, p_force)
+        assert torch.equal(gm, wm), (tile, p_force)
+
+
 # ---------------------------------------------------------------------------
 # Argument checks, tiles and device dispatch.
 # ---------------------------------------------------------------------------
@@ -205,12 +264,21 @@ def test_meta_tensor_raises_and_returns_nothing():
 
 def test_argument_checks():
     w = torch.zeros((1, 8, 16, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K2"):
-        ops.fhp_step_cuda(w, 0, rng_in_kernel=False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ops.fhp_step_cuda(w, 0, extended=True, hg=16, wdg=8)
-    with pytest.raises(ValueError, match="donate"):
-        ops.fhp_step_cuda(w, 0, donate=True)
+    with pytest.raises(ValueError, match="single step"):
+        ops.fhp_step_cuda(w, 0, rng_in_kernel=False, steps_per_launch=2)
+    with pytest.raises(ValueError, match="fused-path"):
+        ops.fhp_step_cuda(w[:, :7], 0, rng_in_kernel=False, solid=w[0, 7])
+    with pytest.raises(ValueError, match="global-coordinate"):
+        ops.fhp_step_cuda(w, 0, extended=True, hg=16, wdg=8,
+                          rng_in_kernel=False)
+    with pytest.raises(ValueError, match="hg/wdg"):
+        ops.fhp_step_cuda(w, 0, extended=True, hg=16)
+    with pytest.raises(ValueError, match="even hg"):
+        ops.fhp_step_cuda(w, 0, extended=True, hg=15, wdg=8)
+    for extended in (False, True):
+        with pytest.raises(ValueError, match="donate"):
+            ops.fhp_step_cuda(w, 0, donate=True, extended=extended, hg=16,
+                              wdg=8)
     with pytest.raises(ValueError, match="expects 2"):
         ops.fhp_step_cuda(w, 0, variant="bml")
     with pytest.raises(ValueError, match="no force pass"):
@@ -300,14 +368,18 @@ def test_sass_counts_by_pipe():
     sass = _sass({"copy": [],
                   "step_even": step,
                   "step_odd": step + ["LOP3.LUT R5, R5, R6, RZ, 0x3c, !PT ;"],
+                  "pre_even": step[:1],
+                  "pre_odd": step[:1],
                   "terms": ["LOP3.LUT R6, R5, R6, RZ, 0xc0, !PT ;",
                             "POPC R6, R6 ;", "IADD3 R8, R8, R6, RZ ;"]})
     assert opcount.parse_sass(sass)["step_even"]["LOP3"] == 1
     c = opcount.word_step_counts(sass)
     assert c["step"] == {"alu": 3.5, "fma": 1, "popc": 0, "other": 1}
+    assert c["pre"] == {"alu": 1, "fma": 0, "popc": 0, "other": 0}
     assert c["terms"] == {"alu": 2, "fma": 0, "popc": 1, "other": 0}
     assert opcount.per_word_step(c, 0.5) == {"alu": 4.5, "fma": 1,
                                             "popc": 0.5, "other": 1}
+    assert opcount.per_word_step(c, 0, "pre") == c["pre"]
     for bad in (["BRA 0x10;"], ["LDL R5, [R1] ;"]):
         with pytest.raises(RuntimeError, match="straight-line"):
             opcount.word_step_counts(sass + "\n" + _sass({"copy": bad}))

@@ -2,10 +2,12 @@
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py    # on the card
 
-The parity sweep of ``chip_smoke.py`` at a small lattice: the kernel
-against its plain version on the card, bit for bit.  Whether a card is
-present is decided inside the ``cuda`` fixture, so every worker collects
-the same tests; without a card they skip.
+The parity sweeps of ``chip_smoke.py`` at a small lattice -- periodic,
+extended-shard and precomputed-RNG mode -- the kernel against its plain
+version on the card, bit for bit; the single-device and sharded entry
+points against their plain runs on the CPU.  Whether a card is present is
+decided inside the ``cuda`` fixture, so every worker collects the same
+tests; without a card they skip.
 """
 import pytest
 import torch
@@ -29,6 +31,48 @@ def test_kernel_matches_plain_version(cuda, case):
     assert not bad, "\n".join(bad)
 
 
+@pytest.mark.parametrize("case", check.CASES, ids=str)
+def test_extended_kernel_matches_plain_version(cuda, case):
+    bad = check.run_extended_case(case, cuda, h=70, wd=31)
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("case", check.K2_CASES, ids=str)
+def test_precomputed_rng_kernel_matches_plain_version(cuda, case):
+    bad = check.run_k2_case(case, cuda, h=70, wd=31)
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("overlap,static", [(False, False), (True, False),
+                                            (True, True)])
+def test_sharded_path_counts_launches(cuda, overlap, static):
+    # A 2 x 2 mesh of four slots on the one card against the same mesh of
+    # CPU slots (the plain version) and the single-device plain run.
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 8, 64, 40),
+                          dtype=torch.int32)
+    words[:, 7] = words[0, 7]
+    kw = dict(depth=4, steps_per_launch=4, p_force=0.05, variant="fhp3",
+              overlap=overlap, static_solid=static, batched=True,
+              moments_every=2)
+    run = distributed.make_run(
+        distributed.make_mesh((2, 2), ("data", "model"), cuda), 8, **kw)
+    ops.LAUNCHES = 0
+    out, mom = run(words.to(cuda), 3)
+    assert ops.LAUNCHES == 2 * 4 * (5 if overlap else 1)
+    want, wmom = distributed.make_run(
+        distributed.make_mesh((2, 2), ("data", "model"), "cpu"), 8,
+        **kw)(words, 3)
+    assert torch.equal(out.cpu(), want) and torch.equal(mom.cpu(), wmom)
+    single_run, _ = distributed.make_ensemble_run(
+        None, 8, variant="fhp3", p_force=0.05, steps_per_launch=4,
+        moments_every=2)
+    single, smom = single_run(words, 3)
+    assert torch.equal(want, single)
+    assert torch.equal(wmom, smom[..., [r for r, n in enumerate(
+        rulespec.moment_spec(rulespec.get_rule("fhp3")).names)
+        if n != "solid" or not static]])
+
+
 def test_main_path_counts_launches(cuda):
     words = torch.randint(0, 2 ** 31 - 1, (2, 8, 64, 40), dtype=torch.int32)
     planes = words.to(cuda)
@@ -45,6 +89,28 @@ def test_main_path_counts_launches(cuda):
     assert mom.shape == (2, 4, rulespec.moment_spec(
         rulespec.get_rule("fhp3")).n_moments)
 
+
+
+def test_sharded_path_on_distinct_cards(cuda):
+    # The same 2 x 2 mesh with one card per slot: halo slices cross
+    # between cards; the result equals four slots on one card.
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 8, 256, 64),
+                          dtype=torch.int32)
+    kw = dict(depth=8, steps_per_launch=8, p_force=0.05, overlap=True,
+              moments_every=4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    run, sharding = distributed.make_ensemble_run(
+        distributed.make_mesh((2, 2), ("data", "model"), cards), 16, **kw)
+    assert {d.index for row in sharding.devices for d in row} == {0, 1, 2, 3}
+    ops.LAUNCHES = 0
+    out, mom = run(words.to(cuda), 3)
+    assert ops.LAUNCHES == 2 * 4 * 5
+    one, _ = distributed.make_ensemble_run(
+        distributed.make_mesh((2, 2), ("data", "model"), cuda), 16, **kw)
+    want, wmom = one(words.to(cuda), 3)
+    assert torch.equal(out, want) and torch.equal(mom, wmom)
 
 
 def test_compiled_word_step_is_counted(cuda):

@@ -53,11 +53,6 @@ def test_ensemble_run_matches_reference(variant, use_pallas, k):
     assert np.array_equal(np.asarray(want), carry.planes_to_reference(got))
 
 
-def test_mesh_path_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        distributed.make_ensemble_run(object(), 4)
-
-
 def test_quickstart_matches_reference():
     got = quickstart.main(["--device", "cpu", "--steps", "19", "--height",
                            "32", "--width", "128"])
