@@ -22,7 +22,8 @@ no result line):
    twin of lane 0 bit-equal to the 8-plane run;
 4. times: kernel ms per launch (CUDA events, 20 launches after warm-up),
    site updates per second and the plain version's ms per launch, at
-   T in {1, 8}, beside the card's name and power limit;
+   T in {1, 8} and T = 8 static-solid, beside the card's name and power
+   limit; each timed launch is first held bit-equal to its plain version;
 5. extended and K2 parity: the kernel's extended-shard mode through
    ``ops.run_extended`` (y0 = -T, xw0 = -1, global extents larger than the
    array; validity window and moments) and its precomputed-RNG mode
@@ -39,7 +40,12 @@ no result line):
    against phase 3's, the exchange and kernel time of one round, the
    extended launch (and its static-solid twin) at the shard shape, each
    piece of ``run_extended_split``, and a precomputed-RNG launch against
-   a T = 1 launch, each with its bound and its plain version's time.
+   a T = 1 launch, each with its bound and its plain version's time, and
+   each held bit-equal to its plain version on the same inputs (extended
+   launches on their validity window, with their moments) first.
+
+Every entry's ``max_abs_err`` comes from its timed launch held against the
+plain version.
 
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
 """
@@ -101,19 +107,18 @@ def _max_abs_err(a, b) -> int:
 
 def _reset_counts():
     from repro_torch.kernels.fhp_step import ops
-    ops.LAUNCHES = 0
-    ops.MODE_LAUNCHES.clear()
+    ops.LAUNCHES.clear()
 
 
 def _counts():
     from repro_torch.kernels.fhp_step import ops
-    return ops.LAUNCHES, dict(ops.MODE_LAUNCHES)
+    return ops.launches_total(), dict(ops.LAUNCHES)
 
 
-def _entry(name, mode, launches, max_abs_err, timed, card, **extra):
+def _entry(name, mode, launches, timed, card, **extra):
     """One kernel line entry from ``timed`` = (kernel ms, plain ms, ops ms,
-    bytes ms, pipe)."""
-    k_ms, p_ms, ops_ms, bytes_ms, pipe = timed
+    bytes ms, pipe, max_abs_err against the plain version)."""
+    k_ms, p_ms, ops_ms, bytes_ms, pipe, max_abs_err = timed
     return {"name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "mode": mode, "launches": launches,
             "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
@@ -146,27 +151,55 @@ def _extended_sweeps(dev) -> None:
             ("K2", check.K2_CASES, check.run_k2_case)):
         t = time.perf_counter()
         bad = []
+        _reset_counts()
         for i, case in enumerate(cases):
             bad += run_case(case, dev, SWEEP_H, SWEEP_WD, seed=i)
         torch.cuda.synchronize()
+        _, modes = _counts()
         if bad:
             print("\n".join(bad[:20]))
             raise AssertionError(f"{name} sweep: {len(bad)} mismatches")
+        # Every K2 case (one launch per tile) must run the K2 kernel.
+        if name == "K2" and modes.get("precomputed_rng") != 3 * len(cases):
+            raise AssertionError(f"K2 sweep made launches {modes}")
         print(f"[sweep] {name}: {len(cases)} cases x 3 tiles on {SWEEP_H} x "
-              f"{SWEEP_WD * 32} nodes: 0 mismatches "
-              f"({time.perf_counter() - t:.1f} s)")
+              f"{SWEEP_WD * 32} nodes: 0 mismatches, launches by mode "
+              f"{modes} ({time.perf_counter() - t:.1f} s)")
 
 
-def _timed(fn, plain, x, T, n_rec, static, counted, **bound):
-    """(kernel ms, plain ms, ops ms, bytes ms, pipe) of one launch."""
+def _held(label, got, want, window=None) -> int:
+    """The max_abs_err of a kernel launch's output ``got`` against its plain
+    version's ``want`` -- planes (on ``window`` = (rows, words) when given)
+    and moments; raises unless it is 0."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i == 0 and window is not None:
+            a, b = a[..., window[0], window[1]], b[..., window[0], window[1]]
+        e = _max_abs_err(a, b) if a.shape == b.shape else -1
+        if e:
+            from repro_torch.kernels.fhp_step import check
+            raise AssertionError(
+                f"{label}: {'moments' if i else 'planes'} differ from the "
+                f"plain version first at {check.first_difference(a, b)}")
+        err = max(err, e)
+    return err
+
+
+def _timed(label, fn, plain, x, T, n_rec, static, counted, window=None,
+           **bound):
+    """(kernel ms, plain ms, ops ms, bytes ms, pipe, max_abs_err) of one
+    launch ``fn``, held against its plain version ``plain`` first."""
+    err = _held(label, fn(), plain(), window)
     k_ms = _time_ms(fn, reps=20)
     p_ms = _time_ms(plain, reps=2, warmup=1)
     ops_ms, pipe, bytes_ms = _bound_ms(x, T, n_rec, static, counted, **bound)
-    return k_ms, p_ms, ops_ms, bytes_ms, pipe
+    return k_ms, p_ms, ops_ms, bytes_ms, pipe, err
 
 
 def _print_time(card, label, timed, sites_updates=None):
-    k_ms, p_ms, ops_ms, bytes_ms, pipe = timed
+    k_ms, p_ms, ops_ms, bytes_ms, pipe, _ = timed
     rate = (f" ({sites_updates / (k_ms * 1e-3):.4e} site-updates/s)"
             if sites_updates else "")
     print(f"[time] {card} | {label}: kernel {k_ms:.4f} ms/launch{rate}, "
@@ -180,7 +213,7 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     """Phases 6 and 7: the sharded path and the precomputed-RNG path, each
     held bit-equal to phase 3's single-device results, then their times.
     Returns the kernels line's entries of modes K5, K6 (extended) and K2."""
-    from repro_torch.core import distributed, prng
+    from repro_torch.core import distributed
     from repro_torch.kernels.fhp_step import check, ops, ref
 
     # -- 6. the sharded path --------------------------------------------------
@@ -214,7 +247,6 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
               f"overlap={overlap}: {walls[overlap]:.4f} s, launches by mode "
               f"{modes[overlap]}; planes and moments bit-equal to the "
               f"single-device run")
-    k5_err = _max_abs_err(got, out)
     del got, sout
 
     full = planes.clone()
@@ -236,7 +268,6 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     if where is not None:
         raise AssertionError(f"static-solid sharded run differs first at "
                              f"{where}")
-    k6_err = _max_abs_err(got, twin)
     print(f"[sharded] static_solid=True, batched: launches by mode "
           f"{static_modes}; bit-equal to run_cuda of the same stack")
     del got, twin, sres, placed_full, full
@@ -251,7 +282,6 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     where = check.first_difference(k2_out, first)
     if where is not None:
         raise AssertionError(f"precomputed-RNG path differs first at {where}")
-    k2_err = _max_abs_err(k2_out, first)
     print(f"[K2] run_cuda(rng_in_kernel=False), {T_MAIN} one-step launches: "
           f"bit-equal to phase 3's first {T_MAIN}-step launch, launches by "
           f"mode {k2_modes}")
@@ -292,16 +322,19 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     one = dict(y0=-DEPTH, xw0=-1, steps_per_launch=T_MAIN,
                record_steps=(T_MAIN - 1,), moment_bounds=bounds,
                extended=True, **glob)
-    timed_k5 = _timed(lambda: ops.fhp_step_cuda(e, 0, **one),
+    window = (slice(DEPTH, he - DEPTH), slice(1, wde - 1))
+    timed_k5 = _timed("extended launch",
+                      lambda: ops.fhp_step_cuda(e, 0, **one),
                       lambda: ref.fhp_step_ref(e, 0, **one), e, T_MAIN, 1,
-                      False, counted, owned=(hl, wdl))
+                      False, counted, window, owned=(hl, wdl))
     _print_time(card, f"extended launch at the shard shape {tuple(e.shape)}"
                 f", T={T_MAIN}, moments", timed_k5, lanes * hl * wdl * 32 * T_MAIN)
     dyn = e[:, :7].contiguous()
     sol = e[0, 7].contiguous()
-    timed_k6 = _timed(lambda: ops.fhp_step_cuda(dyn, 0, solid=sol, **one),
+    timed_k6 = _timed("extended static-solid launch",
+                      lambda: ops.fhp_step_cuda(dyn, 0, solid=sol, **one),
                       lambda: ref.fhp_step_ref(dyn, 0, solid=sol, **one),
-                      dyn, T_MAIN, 1, True, counted, owned=(hl, wdl))
+                      dyn, T_MAIN, 1, True, counted, window, owned=(hl, wdl))
     _print_time(card, "extended static-solid launch at the shard shape",
                 timed_k6, lanes * hl * wdl * 32 * T_MAIN)
     d = DEPTH
@@ -315,31 +348,29 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
                (hl - 2 * d, 1)))
     for name, rows, words, dy, dx, owned in pieces:
         x = e[..., rows, words].contiguous()
+        xh, xw = x.shape[-2:]
         pkw = dict(one, y0=-d + dy, xw0=-1 + dx,
-                   moment_bounds=(d, x.shape[-2] - d, 1, x.shape[-1] - 1))
-        _print_time(card, f"run_extended_split piece {name} "
-                    f"{tuple(x.shape)}",
-                    _timed(lambda: ops.fhp_step_cuda(x, 0, **pkw),
-                           lambda: ref.fhp_step_ref(x, 0, **pkw), x, T_MAIN,
-                           1, False, counted, owned=owned))
+                   moment_bounds=(d, xh - d, 1, xw - 1))
+        label = f"run_extended_split piece {name} {tuple(x.shape)}"
+        _print_time(card, label, _timed(
+            label, lambda: ops.fhp_step_cuda(x, 0, **pkw),
+            lambda: ref.fhp_step_ref(x, 0, **pkw), x, T_MAIN, 1, False,
+            counted, (slice(d, xh - d), slice(1, xw - 1)), owned=owned))
     del ext, e, dyn
 
-    chi = prng.chirality_words(planes.shape[-2:], 0, device=dev)
-    acc = prng.bernoulli_words(planes.shape[-2:], 0, P_FORCE, device=dev)
+    # The two planes are drawn once, outside the timed launches.
+    chi, acc = ops.rng_words(planes.shape[-2:], 0, p_force=P_FORCE,
+                             device=dev)
     k2_kw = dict(p_force=P_FORCE, rng_in_kernel=False)
-    k2_ms = _time_ms(lambda: ops._launch(
-        planes, None, chi, acc, ops._RULE_ID["fhp2"],
-        ops._MODE_ID["precomputed_rng"], 0, 0, 0, 0, 0, *ops.pick_tile(
-            HEIGHT, WIDTH // 32), 1, prng.quantize_p(P_FORCE), (), 0,
-        (0, HEIGHT, 0, WIDTH // 32)), reps=20)
+    timed_k2 = _timed(
+        "K2 launch",
+        lambda: ops.fhp_step_cuda(planes, 0, rng_planes=(chi, acc), **k2_kw),
+        lambda: ref.fhp_step_ref(planes, 0, p_force=P_FORCE, chi=chi,
+                                 accel=acc),
+        planes, 1, 0, False, counted, step="pre", extra_planes=2)
+    k2_ms = timed_k2[0]
     wrapper_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **k2_kw),
                           reps=5)
-    p_ms = _time_ms(lambda: ref.fhp_step_ref(planes, 0, p_force=P_FORCE,
-                                              chi=chi, accel=acc),
-                    reps=2, warmup=1)
-    ops_ms, pipe, bytes_ms = _bound_ms(planes, 1, 0, False, counted,
-                                       step="pre", extra_planes=2)
-    timed_k2 = (k2_ms, p_ms, ops_ms, bytes_ms, pipe)
     _print_time(card, "K2 launch (precomputed RNG planes, T=1)", timed_k2,
                 sites)
     print(f"[time] {card} | K2 against K1 at T=1: {k2_ms:.4f} against "
@@ -347,12 +378,12 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
           f"planes drawn on the card {wrapper_ms:.4f} ms")
     return [
         _entry("fhp_step K5 extended shard", "extended",
-               modes[False]["extended"], k5_err, timed_k5, card,
+               modes[False]["extended"], timed_k5, card,
                launches_overlap=modes[True]["extended"]),
         _entry("fhp_step K6 static solid, extended", "extended_static_solid",
-               static_modes["extended_static_solid"], k6_err, timed_k6, card),
+               static_modes["extended_static_solid"], timed_k6, card),
         _entry("fhp_step K2 precomputed RNG", "precomputed_rng",
-               k2_modes["precomputed_rng"], k2_err, timed_k2, card),
+               k2_modes["precomputed_rng"], timed_k2, card),
     ]
 
 
@@ -475,19 +506,14 @@ def main() -> int:
         kw = dict(p_force=P_FORCE, steps_per_launch=T, record_steps=rec,
                   solid=solid if static else None)
         x = dyn if static else planes
-        k_ms = _time_ms(lambda: ops.fhp_step_cuda(x, 0, **kw), reps=20)
-        p_ms = _time_ms(lambda: ref.fhp_step_ref(x, 0, **kw), reps=2,
-                        warmup=1)
-        ops_ms, pipe, bytes_ms = _bound_ms(x, T, len(rec), static, counted)
-        results[label] = (k_ms, p_ms, ops_ms, bytes_ms, pipe)
-        print(f"[time] {card} | {label}: kernel {k_ms:.4f} ms/launch "
-              f"({sites * T / (k_ms * 1e-3):.4e} site-updates/s), plain "
-              f"{p_ms:.2f} ms/launch, bound {max(ops_ms, bytes_ms):.4f} ms "
-              f"(instructions {ops_ms:.4f} ms, set by {pipe}; bytes "
-              f"{bytes_ms:.4f} ms)")
+        results[label] = _timed(
+            f"{label} launch", lambda: ops.fhp_step_cuda(x, 0, **kw),
+            lambda: ref.fhp_step_ref(x, 0, **kw), x, T, len(rec), static,
+            counted)
+        _print_time(card, label, results[label], sites * T)
     del dyn
 
-    k_ms, p_ms, ops_ms, bytes_ms, pipe = results[f"T={T_MAIN}"]
+    k_ms = results[f"T={T_MAIN}"][0]
     print(f"[time] {card} | main path: {launches} launches x {k_ms:.4f} ms "
           f"= {launches * k_ms / (main_s * 1e3):.4f} of its {main_s:.4f} s "
           f"wall time busy in the kernel")
@@ -496,16 +522,15 @@ def main() -> int:
     sharded = _sharded_path(dev, planes, out, mom, kp, main_s, card, counted,
                             results["T=1"])
 
-    periodic_err = max_abs_err
     entries = [
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],
-               periodic_err, results["T=1"], card),
+               results["T=1"], card),
         _entry("fhp_step K3 2-D tiles", "tiles", main_modes["periodic"],
-               periodic_err, results[f"T={T_MAIN}"], card),
+               results[f"T={T_MAIN}"], card),
         _entry("fhp_step K4 fused moments", "moments", main_modes["moments"],
-               periodic_err, results[f"T={T_MAIN}"], card),
+               results[f"T={T_MAIN}"], card),
         _entry("fhp_step K6 static solid, periodic", "static_solid",
-               twin_modes["static_solid"], 0,
+               twin_modes["static_solid"],
                results[f"T={T_MAIN} static-solid"], card),
     ] + sharded
     print(json.dumps({"kernels": entries}))

@@ -45,8 +45,11 @@ CASES: Tuple[Case, ...] = tuple(
     if not (v == "bml" and pf))
 
 
-K2_CASES: Tuple[Case, ...] = tuple(c for c in CASES
-                                   if c.steps_per_launch == 1)
+# T = 1 cases that draw a random plane: bml at p_force 0 draws none, so
+# ``rng_in_kernel=False`` runs the periodic kernel there.
+K2_CASES: Tuple[Case, ...] = tuple(
+    c for c in CASES if c.steps_per_launch == 1
+    and (rulespec.get_rule(c.variant).needs_rng or c.p_force))
 
 
 def _tiles(T: int, wd: int):

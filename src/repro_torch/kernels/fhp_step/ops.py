@@ -36,12 +36,11 @@ from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import build, codegen
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 
-# Kernel launches since the count was last set to 0, in all and by mode
-# ("periodic", "static_solid", "extended", "extended_static_solid",
-# "precomputed_rng"; "moments" counts the launches that record moments
-# besides): read by chip_smoke.
-LAUNCHES = 0
-MODE_LAUNCHES: collections.Counter = collections.Counter()
+# Kernel launches since the count was last cleared, by mode ("periodic",
+# "static_solid", "extended", "extended_static_solid", "precomputed_rng");
+# "moments" counts the launches that also record moments.  Read by
+# chip_smoke; ``launches_total`` sums the modes.
+LAUNCHES: collections.Counter = collections.Counter()
 
 SMEM_BYTES_PER_BLOCK = 232_448    # H100: 227 KB of shared memory per block
 MAX_TILE = 32
@@ -49,6 +48,26 @@ MAX_STEPS_PER_LAUNCH = 8          # run_extended's default T
 _GRID_YZ_LIMIT = 65_535
 _RULE_ID = {name: i for i, name in enumerate(codegen.RULES)}
 _MODE_ID = {"periodic": 0, "extended": 1, "precomputed_rng": 2}  # its Mode
+
+
+def launches_total() -> int:
+    """Kernel launches of every mode since ``LAUNCHES`` was cleared."""
+    return sum(n for mode, n in LAUNCHES.items() if mode != "moments")
+
+
+def rng_words(shape, t: int, *, p_force: float = 0.0, y0: int = 0,
+              xw0: int = 0, variant: str = "fhp2", device=None):
+    """``(chi, acc)``: the chirality and force words of step ``t`` on an
+    ``(H, Wd)`` lattice at global word ``(y0, xw0)``, drawn on ``device``
+    -- the planes kernel mode K2 reads.  Each is None where the step draws
+    none (a rule without chirality; ``p_force`` 0)."""
+    chi = acc = None
+    if rulespec.get_rule(variant).needs_rng:
+        chi = prng.chirality_words(shape, t, y0=y0, xw0=xw0, device=device)
+    if prng.quantize_p(p_force) > 0:
+        acc = prng.bernoulli_words(shape, t, p_force, y0=y0, xw0=xw0,
+                                   device=device)
+    return chi, acc
 
 
 def smem_bytes(bh: int, bw: int, steps: int = 1, static_solid: bool = False,
@@ -91,7 +110,8 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
                   wdg: int | None = None, donate: bool = False,
                   solid: torch.Tensor | None = None,
                   record_steps: tuple = (),
-                  moment_bounds: tuple | None = None):
+                  moment_bounds: tuple | None = None,
+                  rng_planes: tuple | None = None):
     """``steps_per_launch`` fused steps of rule ``variant`` in one launch.
 
     ``y0``/``xw0`` are the global coordinates of word (0, 0) (RNG counters
@@ -112,10 +132,9 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
     side and one lattice column per step.
 
     ``rng_in_kernel=False`` (kernel mode K2, T = 1) reads the chirality and
-    force words from ``(H, Wd)`` planes that this wrapper draws with
-    ``prng.chirality_words`` / ``bernoulli_words`` on the tensor's device,
-    instead of hashing them in the kernel."""
-    global LAUNCHES
+    force words from ``(H, Wd)`` planes instead of hashing them in the
+    kernel: ``rng_planes = (chi, acc)`` when given, else this wrapper draws
+    them with ``rng_words`` on the tensor's device."""
     spec = rulespec.get_rule(variant)
     squeeze = planes.dim() == 3
     if squeeze:
@@ -183,14 +202,16 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
             ms, (hg * wdg if extended else h * wd) * 32)
     r0, r1, c0, c1 = moment_bounds or (0, h, 0, wd)
     bounds = (max(r0, 0), min(r1, h), max(c0, 0), min(c1, wd))
+    if rng_planes is not None and rng_in_kernel:
+        raise ValueError("rng_planes are read with rng_in_kernel=False only")
+    if rng_planes is not None and any(
+            a is not None and tuple(a.shape) != (h, wd) for a in rng_planes):
+        raise ValueError(f"rng_planes must be (H, Wd) = {(h, wd)} planes")
     chi = acc = None
     if not rng_in_kernel:
-        if spec.needs_rng:
-            chi = prng.chirality_words((h, wd), t, y0=y0, xw0=xw0,
-                                       device=planes.device)
-        if prng.quantize_p(p_force) > 0:
-            acc = prng.bernoulli_words((h, wd), t, p_force, y0=y0, xw0=xw0,
-                                       device=planes.device)
+        chi, acc = rng_planes or rng_words(
+            (h, wd), t, p_force=p_force, y0=y0, xw0=xw0, variant=variant,
+            device=planes.device)
 
     if planes.device.type == "cpu":
         out = fhp_step_ref(planes, t, p_force=p_force, y0=y0, xw0=xw0,
@@ -206,13 +227,12 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
                       _MODE_ID[mode], t, y0, xw0, hg or 0, wdg or 0, bh, bw,
                       T, prng.quantize_p(p_force), rs,
                       ms.n_moments if rs else 0, bounds)
-        LAUNCHES += 1
         if static_solid:
             mode = "static_solid" if mode == "periodic" else \
                 "extended_static_solid"
-        MODE_LAUNCHES[mode] += 1
+        LAUNCHES[mode] += 1
         if rs:
-            MODE_LAUNCHES["moments"] += 1
+            LAUNCHES["moments"] += 1
     else:
         raise ValueError(f"fhp_step_cuda runs on CUDA tensors (and its plain "
                          f"version on CPU tensors), not {planes.device}")

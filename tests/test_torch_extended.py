@@ -104,6 +104,23 @@ def test_precomputed_rng_matches_reference(variant, p_force, y0, xw0):
     fused = ops.fhp_step_cuda(carry.planes_from_reference(w, CPU), 7,
                               **dict(kw, rng_in_kernel=True))
     assert torch.equal(fused, got)
+    # ... and the same step on planes drawn once, outside the wrapper.
+    x = carry.planes_from_reference(w, CPU)
+    given = ops.rng_words(x.shape[-2:], 7, p_force=p_force, y0=y0, xw0=xw0,
+                          variant=variant, device=CPU)
+    assert torch.equal(ops.fhp_step_cuda(x, 7, rng_planes=given, **kw), got)
+
+
+def test_rng_planes_checks():
+    x = torch.zeros((1, 8, 16, 4), dtype=torch.int32)
+    chi, acc = ops.rng_words((16, 4), 0, p_force=0.05)
+    assert chi.shape == acc.shape == (16, 4)
+    assert ops.rng_words((16, 4), 0, variant="bml") == (None, None)
+    with pytest.raises(ValueError, match="rng_in_kernel=False"):
+        ops.fhp_step_cuda(x, 0, p_force=0.05, rng_planes=(chi, acc))
+    with pytest.raises(ValueError, match="rng_planes must be"):
+        ops.fhp_step_cuda(x, 0, p_force=0.05, rng_in_kernel=False,
+                          rng_planes=(chi[:8], acc))
 
 
 @pytest.mark.parametrize("case", [check.Case("fhp2", 2, 1, 0.05),

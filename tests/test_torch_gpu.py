@@ -56,9 +56,9 @@ def test_sharded_path_counts_launches(cuda, overlap, static):
               moments_every=2)
     run = distributed.make_run(
         distributed.make_mesh((2, 2), ("data", "model"), cuda), 8, **kw)
-    ops.LAUNCHES = 0
+    ops.LAUNCHES.clear()
     out, mom = run(words.to(cuda), 3)
-    assert ops.LAUNCHES == 2 * 4 * (5 if overlap else 1)
+    assert ops.launches_total() == 2 * 4 * (5 if overlap else 1)
     want, wmom = distributed.make_run(
         distributed.make_mesh((2, 2), ("data", "model"), "cpu"), 8,
         **kw)(words, 3)
@@ -80,9 +80,9 @@ def test_main_path_counts_launches(cuda):
         None, 19, variant="fhp3", p_force=0.05, steps_per_launch=4,
         moments_every=4)
     assert sharding is None
-    ops.LAUNCHES = 0
+    ops.LAUNCHES.clear()
     out, mom = run(planes, 3)
-    assert ops.LAUNCHES == 5          # 4 launches of 4 steps + 1 of 3
+    assert ops.launches_total() == 5          # 4 launches of 4 steps + 1 of 3
     want, wmom = run(words, 3)        # plain version on the CPU
     assert torch.equal(out.cpu(), want)
     assert torch.equal(mom.cpu(), wmom)
@@ -104,9 +104,9 @@ def test_sharded_path_on_distinct_cards(cuda):
     run, sharding = distributed.make_ensemble_run(
         distributed.make_mesh((2, 2), ("data", "model"), cards), 16, **kw)
     assert {d.index for row in sharding.devices for d in row} == {0, 1, 2, 3}
-    ops.LAUNCHES = 0
+    ops.LAUNCHES.clear()
     out, mom = run(words.to(cuda), 3)
-    assert ops.LAUNCHES == 2 * 4 * 5
+    assert ops.launches_total() == 2 * 4 * 5
     one, _ = distributed.make_ensemble_run(
         distributed.make_mesh((2, 2), ("data", "model"), cuda), 16, **kw)
     want, wmom = one(words.to(cuda), 3)
