@@ -8,13 +8,16 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. device and build: the card's name and power limit, torch and CUDA
-   versions, the kernel's nvcc build time and ptxas register / shared
-   memory / spill report, and the compiled instructions of one word-step
-   per pipe (``kernels/fhp_step/opcount.py``), which set its bound;
+   versions, the kernel's nvcc build time, ptxas registers and spills per
+   instantiation, resident blocks per SM of each mode at its main tile
+   (``ops.kernel_info``), the compiled instructions of one word-step per
+   pipe (``kernels/fhp_step/opcount.py``), which set its bound, and the
+   instructions of the built kernel's round loop (``cuobjdump -sass``);
 2. parity sweep: the kernel against ``fhp_step_ref`` on the card, bit for
    bit, over fhp2/fhp3/bml x T in {1,2,4,8} x B in {1,3} x p_force in
-   {0, 0.05} x three tiles, static-solid included (``kernels/fhp_step/
-   check.py``), on a 256 x 4000-node lattice;
+   {0, 0.05} x four tiles, static-solid included (``kernels/fhp_step/
+   check.py``), on 256 x 4000- and 256 x 4096-node lattices (the second
+   takes the kernel's 16-byte copies);
 3. main path: ``core.distributed.make_ensemble_run`` -- the serve engine's
    call -- for 64 fhp2 steps (T = 8, moments every 8) on 4 lanes of the
    4096 x 32768 cylinder scenario; mass conserved at every recorded step,
@@ -24,10 +27,15 @@ no result line):
    site updates per second and the plain version's ms per launch, at
    T in {1, 8} and T = 8 static-solid, beside the card's name and power
    limit; each timed launch is first held bit-equal to its plain version;
+   then the T = 8 launch at each tile shape of ``TILES`` (held bit-equal
+   to the launch above), the per-step time at T in {1, 2, 4, 8}, and the
+   main tile's launch time at those T fitted against the word-steps it
+   issues (what a launch costs besides its steps: loads, stores);
 5. extended and K2 parity: the kernel's extended-shard mode through
    ``ops.run_extended`` (y0 = -T, xw0 = -1, global extents larger than the
    array; validity window and moments) and its precomputed-RNG mode
-   against the plain version, bit for bit, over the same cases and tiles;
+   against the plain version, bit for bit, over the same cases, tiles and
+   lattices;
 6. the sharded path: phase 3's state through ``make_ensemble_run`` on a
    2 x 2 ("data", "model") mesh of four slots on the one card (depth 8,
    T = 8, moments every 8), with and without ``overlap``, bit-equal to
@@ -64,9 +72,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 LANES, HEIGHT, WIDTH = 4, 4096, 32768
 STEPS, T_MAIN, P_FORCE = 64, 8, 0.03
 SWEEP_H, SWEEP_WD = 256, 125
+# A second sweep width whose rows take the kernel's 16-byte copies.
+SWEEP_WD_ALIGNED = 128
 HBM_BYTES_PER_S = 3.35e12
 MESH = ((2, 2), ("data", "model"))
 DEPTH = 8
+# Tile shapes (rows x words) timed at T = 8 in phase 4.
+TILES = ((32, 32), (48, 32), (64, 32), (64, 64), (32, 48), (40, 48),
+         (64, 48), (32, 112))
 SOURCE = "src/repro_torch/kernels/fhp_step/csrc/fhp_step.cu"
 REPLACES = "src/repro/kernels/fhp_step/kernel.py:330"
 
@@ -99,6 +112,19 @@ def _bound_ms(x, T, n_rec, static, counted, owned=None, step="step",
     n_bytes = 4 * (2 * x.numel() + h * wd * (int(static) + extra_planes)
                    + lanes * n_rec * n_moments)
     return ops_ms, pipe, n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _apron(bh, bw, T) -> float:
+    """Word-steps a (bh, bw) tile computes at T per word-step it owns."""
+    return sum((bh + 2 * (T - s) - 2) * (bw + 2 * (T - s) - 2)
+               for s in range(T)) / (T * bh * bw)
+
+
+def _lanes(bh, bw, T) -> float:
+    """Thread word-steps a tile issues (whole warps per row) per word-step
+    it owns."""
+    w = -(-(bw + 2 * T) // 32) * 32
+    return sum((bh + 2 * (T - s) - 2) * w for s in range(T)) / (T * bh * bw)
 
 
 def _max_abs_err(a, b) -> int:
@@ -146,24 +172,29 @@ def _time_ms(fn, reps, warmup=2):
 def _extended_sweeps(dev) -> None:
     """Phase 5: the extended-shard and precomputed-RNG sweeps on the card."""
     from repro_torch.kernels.fhp_step import check
-    for name, cases, run_case in (
-            ("extended", check.CASES, check.run_extended_case),
-            ("K2", check.K2_CASES, check.run_k2_case)):
+    n_tiles = len(check._tiles(1, SWEEP_WD))
+    for name, cases, run_case, wd in (
+            ("extended", check.CASES, check.run_extended_case, SWEEP_WD),
+            ("extended", check.CASES, check.run_extended_case,
+             SWEEP_WD_ALIGNED),
+            ("K2", check.K2_CASES, check.run_k2_case, SWEEP_WD),
+            ("K2", check.K2_CASES, check.run_k2_case, SWEEP_WD_ALIGNED)):
         t = time.perf_counter()
         bad = []
         _reset_counts()
         for i, case in enumerate(cases):
-            bad += run_case(case, dev, SWEEP_H, SWEEP_WD, seed=i)
+            bad += run_case(case, dev, SWEEP_H, wd, seed=i)
         torch.cuda.synchronize()
         _, modes = _counts()
         if bad:
             print("\n".join(bad[:20]))
             raise AssertionError(f"{name} sweep: {len(bad)} mismatches")
         # Every K2 case (one launch per tile) must run the K2 kernel.
-        if name == "K2" and modes.get("precomputed_rng") != 3 * len(cases):
+        if name == "K2" and modes.get("precomputed_rng") != n_tiles * len(
+                cases):
             raise AssertionError(f"K2 sweep made launches {modes}")
-        print(f"[sweep] {name}: {len(cases)} cases x 3 tiles on {SWEEP_H} x "
-              f"{SWEEP_WD * 32} nodes: 0 mismatches, launches by mode "
+        print(f"[sweep] {name}: {len(cases)} cases x {n_tiles} tiles on "
+              f"{SWEEP_H} x {wd * 32} nodes: 0 mismatches, launches by mode "
               f"{modes} ({time.perf_counter() - t:.1f} s)")
 
 
@@ -412,26 +443,53 @@ def main() -> int:
         print(f"[build] reused {build.library_path()}")
     else:
         print(f"[build] nvcc {info['seconds']:.1f} s -> {info['library']}")
-    for line in info.get("ptxas", "").splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    for rep in build.ptxas_report(info.get("ptxas", "")):
+        print(f"[build] {rep['kernel']}: {rep.get('registers')} registers, "
+              f"spill stores {rep.get('spill_stores')} B, spill loads "
+              f"{rep.get('spill_loads')} B")
+    for mode, static, T in (("periodic", False, T_MAIN),
+                            ("periodic", True, T_MAIN),
+                            ("extended", False, T_MAIN),
+                            ("extended", True, T_MAIN),
+                            ("periodic", False, 1),
+                            ("precomputed_rng", False, 1)):
+        tile = ops.pick_tile(HEIGHT, WIDTH // 32, T, static)
+        print(f"[occupancy] fhp2 {mode}{' static' if static else ''} T={T} "
+              f"tile {tile}: {ops.kernel_info('fhp2', mode, static, *tile, T)}")
     step, terms = counted["step"], counted["terms"]
     print(f"[bound] compiled fhp2 word-step at p_force {P_FORCE}, per pipe: "
           f"{step}; moment terms per word: {terms}; opcodes of the "
           f"even-row probe: {counted['opcodes']}")
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass",
+                           str(build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    rounds = [b for b in opcount.loop_bodies(
+        sass, "fhp_step_kernelI9Rule_fhp2Lb0ELi0ELb1E")
+        if b["barriers"] == 2]
+    if rounds:
+        b = rounds[0]
+        print(f"[sass] fhp2 periodic kernel (fixed plane stride), round "
+              f"loop (2 barriers, "
+              f"{opcount.WORDS_PER_ROUND} word-steps a thread): "
+              f"{b['total']} instructions, "
+              f"{b['total'] / opcount.WORDS_PER_ROUND:.1f} per word-step "
+              f"against the probe's {sum(step.values()):.1f}; per pipe "
+              f"{ {k: b[k] for k in ('alu', 'fma', 'popc', 'other')} }, "
+              f"shared loads and stores {b['shared']}")
 
     # -- 2. parity sweep ------------------------------------------------------
-    t = time.perf_counter()
-    bad = []
-    for i, case in enumerate(check.CASES):
-        bad += check.run_case(case, dev, SWEEP_H, SWEEP_WD, seed=i)
-    torch.cuda.synchronize()
-    if bad:
-        print("\n".join(bad[:20]))
-        raise AssertionError(f"parity sweep: {len(bad)} mismatches")
-    print(f"[sweep] {len(check.CASES)} cases x 3 tiles on {SWEEP_H} x "
-          f"{SWEEP_WD * 32} nodes: 0 mismatches "
-          f"({time.perf_counter() - t:.1f} s)")
+    for wd in (SWEEP_WD, SWEEP_WD_ALIGNED):
+        t = time.perf_counter()
+        bad = []
+        for i, case in enumerate(check.CASES):
+            bad += check.run_case(case, dev, SWEEP_H, wd, seed=i)
+        torch.cuda.synchronize()
+        if bad:
+            print("\n".join(bad[:20]))
+            raise AssertionError(f"parity sweep: {len(bad)} mismatches")
+        print(f"[sweep] {len(check.CASES)} cases x "
+              f"{len(check._tiles(1, wd))} tiles on {SWEEP_H} x {wd * 32} "
+              f"nodes: 0 mismatches ({time.perf_counter() - t:.1f} s)")
 
     # -- 3. main path ---------------------------------------------------------
     t = time.perf_counter()
@@ -512,6 +570,51 @@ def main() -> int:
             counted)
         _print_time(card, label, results[label], sites * T)
     del dyn
+
+    # Tile shapes at T = 8 (rows x words), each held bit-equal to the
+    # launch above, which was held against the plain version; and the
+    # per-step time at T in {1, 2, 4, 8} with pick_tile's tile.
+    kw = dict(p_force=P_FORCE, steps_per_launch=T_MAIN)
+    want = ops.fhp_step_cuda(planes, 0, **kw)
+    for bh, bw in TILES:
+        tkw = dict(kw, block_rows=bh, block_words=bw)
+        where = check.first_difference(ops.fhp_step_cuda(planes, 0, **tkw),
+                                       want)
+        if where is not None:
+            raise AssertionError(f"tile {(bh, bw)} differs first at {where}")
+        t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
+        occ = ops.kernel_info("fhp2", "periodic", False, bh, bw, T_MAIN)
+        print(f"[tile] {card} | T={T_MAIN} tile {bh} x {bw}: {t_ms:.4f} "
+              f"ms/launch, apron {_apron(bh, bw, T_MAIN):.3f}x, lanes "
+              f"{_lanes(bh, bw, T_MAIN):.3f}x, {occ['blocks_per_sm']} "
+              f"blocks/SM, {occ['smem_bytes']} B shared")
+    del want
+    for T in (1, 2, 4, 8):
+        tkw = dict(p_force=P_FORCE, steps_per_launch=T)
+        t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
+        print(f"[steps] {card} | T={T} tile "
+              f"{ops.pick_tile(HEIGHT, WIDTH // 32, T)}: {t_ms:.4f} ms/launch"
+              f", {t_ms / T:.4f} ms per step")
+    # The main tile at each T: launch time against the thread word-steps
+    # it issues, fitted as a + b x word-steps; a is what a launch costs
+    # besides its steps (apron loads, stores, launch).
+    bh, bw = ops.pick_tile(HEIGHT, WIDTH // 32, T_MAIN)
+    xs, ys = [], []
+    for T in (1, 2, 4, 8):
+        tkw = dict(p_force=P_FORCE, steps_per_launch=T, block_rows=bh,
+                   block_words=bw)
+        ys.append(_time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw),
+                           reps=10))
+        xs.append(_lanes(bh, bw, T) * planes[:, 0].numel() * T)
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    b = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+         / sum((x - mx) ** 2 for x in xs))
+    a = my - b * mx
+    print(f"[split] {card} | tile {bh} x {bw} at T=1, 2, 4, 8: "
+          f"{', '.join(f'{y:.4f}' for y in ys)} ms/launch; fit {a:.4f} ms a "
+          f"launch + {b * 1e9:.4f} ms per 1e9 thread word-steps; at "
+          f"T={T_MAIN} the steps take {1 - a / ys[-1]:.4f} of the launch")
 
     k_ms = results[f"T={T_MAIN}"][0]
     print(f"[time] {card} | main path: {launches} launches x {k_ms:.4f} ms "

@@ -13,6 +13,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -85,5 +86,43 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         lib.fhp_step_launch.argtypes = launch_argtypes() + [ctypes.c_void_p]
         lib.fhp_step_launch.restype = ctypes.c_int
+        lib.fhp_step_info.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.fhp_step_info.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_KERNEL_NAME = re.compile(
+    r"fhp_step_kernelI\d+(\w+?)Lb([01])ELi(\d)ELb([01])E")
+_MODE_NAMES = ("periodic", "extended", "precomputed_rng")
+
+
+def ptxas_report(text: str) -> list:
+    """Registers and spill bytes of each kernel instantiation in ``nvcc
+    -Xptxas -v`` output: dicts of ``kernel`` (rule, static solid, mode,
+    and ``fixed`` for the compile-time plane stride),
+    ``registers``, ``spill_stores`` and ``spill_loads``, in build order."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            k = _KERNEL_NAME.search(m.group(1))
+            cur = {"kernel": (f"{k.group(1).replace('Rule_', '')}"
+                              f"{' static' if k.group(2) == '1' else ''} "
+                              f"{_MODE_NAMES[int(k.group(3))]}"
+                              f"{', fixed' if k.group(4) == '1' else ''}"
+                              if k else m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = _PTXAS_USED.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out

@@ -2,10 +2,11 @@
 
 ``run_case`` runs ``ops.run_cuda`` (the kernel on a CUDA tensor) and the
 same steps through ``ref.fhp_step_ref``, one step per call, on the same
-device, over three tiles -- ``pick_tile``'s, a full-width row band, and a
-(24, 13) tile that divides neither axis -- with odd ``y0``, nonzero
-``xw0`` and ``t0``, ``2T + 1`` steps (so one remainder launch) and a
-moments cadence from {1, 3, T}.  FHP cases also run the static-solid
+device, over four tiles -- ``pick_tile``'s, a full-width row band, a
+(24, 13) tile that divides neither axis and a 40-row tile 64 - 2T words
+wide (two warps per row) -- with odd ``y0``, nonzero ``xw0`` and ``t0``,
+``2T + 1`` steps (so one remainder launch) and a moments cadence from
+{1, 3, T, 2}.  FHP cases also run the static-solid
 layout and hold it against the 8-plane run.
 
 ``run_extended_case`` does the same for the extended-shard mode through
@@ -53,9 +54,10 @@ K2_CASES: Tuple[Case, ...] = tuple(
 
 
 def _tiles(T: int, wd: int):
-    """``pick_tile``'s (0, 0), a full-width band of T rows, and a tile that
-    divides neither axis."""
-    return ((0, 0), (T, wd), (24, 13))
+    """``pick_tile``'s (0, 0), a full-width band of T rows, a tile that
+    divides neither axis, and a tile whose row with its apron fills two
+    warps (64 words)."""
+    return ((0, 0), (T, wd), (24, 13), (40, 64 - 2 * T))
 
 
 def _random_planes(case: Case, h: int, wd: int, seed: int, device
@@ -107,7 +109,7 @@ def _run_plain(planes, steps, k, **kw):
 
 def run_case(case: Case, device, h: int, wd: int, seed: int = 0
              ) -> List[str]:
-    """Run one case over the three tiles; returns one line per mismatch
+    """Run one case over the four tiles; returns one line per mismatch
     (first differing index), empty when every comparison is bit-exact."""
     spec = rulespec.get_rule(case.variant)
     T = case.steps_per_launch
@@ -115,7 +117,7 @@ def run_case(case: Case, device, h: int, wd: int, seed: int = 0
     kw = dict(p_force=case.p_force, y0=Y0, xw0=XW0, variant=case.variant)
     steps = 2 * T + 1
     bad = []
-    for (bh, bw), k in zip(_tiles(T, wd), (1, 3, T)):
+    for (bh, bw), k in zip(_tiles(T, wd), (1, 3, T, 2)):
         tag = f"{case} tile={(bh, bw)} moments_every={k}"
         run = dict(t0=T0, steps_per_launch=T, moments_every=k,
                    block_rows=bh, block_words=bw, **kw)
@@ -149,7 +151,7 @@ def run_extended_case(case: Case, device, h: int, wd: int, seed: int = 0
     glob = dict(y0=-T, xw0=-1, hg=2 * h + 2, wdg=wd + 7)
     kw = dict(p_force=case.p_force, variant=case.variant, **glob)
     bad = []
-    for (bh, bw), k in zip(_tiles(T, wd), (1, 3, T)):
+    for (bh, bw), k in zip(_tiles(T, wd), (1, 3, T, 2)):
         tag = f"extended {case} tile={(bh, bw)} moments_every={k}"
         run = dict(t0=T0, steps_per_launch=T, moments_every=k,
                    block_rows=bh, block_words=bw, **kw)
@@ -178,7 +180,7 @@ def run_extended_case(case: Case, device, h: int, wd: int, seed: int = 0
 def run_k2_case(case: Case, device, h: int, wd: int, seed: int = 0
                 ) -> List[str]:
     """One step with precomputed random words (kernel mode K2) over the
-    three tiles, with moments, against the plain step that hashes them."""
+    four tiles, with moments, against the plain step that hashes them."""
     planes = _random_planes(case, h, wd, seed, device)
     kw = dict(p_force=case.p_force, y0=Y0, xw0=XW0, variant=case.variant,
               record_steps=(0,))

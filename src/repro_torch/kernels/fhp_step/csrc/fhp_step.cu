@@ -9,20 +9,6 @@
 // periodic and extended mode) and K2 (one step with precomputed RNG
 // planes).  Modes are template arguments (fhp_step.cuh, ``Mode``).
 //
-// Design (the paper's own CUDA blocking): one thread block owns a
-// (bh, bw)-word tile of one lane, loads it with a T-row, T-word apron of
-// every plane into dynamic shared memory (apron loads wrap mod (H, Wd) in
-// periodic mode and clamp at the array edge in extended mode), runs T
-// steps over the shrinking extent with two ping-pong buffers and
-// __syncthreads() between steps, and writes its interior back.  Each
-// thread updates whole 32-node words.  Moments: after each recorded step a
-// block popcounts its own interior inside the moment window (__popc),
-// reduces over the block, and adds into the (B, n_rec, n_moments) int32
-// output with atomicAdd -- integer adds, so the sum is exact in any order.
-// The output is always a fresh array: where the reference aliases its
-// extended-mode carry in place (``donate``), the host loop here
-// ping-pongs between launches, which costs memory, not results.
-//
 // What bounds it on the H100: per launch each plane word is read once and
 // written once (NPS * 4 bytes per word, over T steps), while each
 // word-step issues the compiled instructions of word_step (fhp_step.cuh:
@@ -30,101 +16,195 @@
 // Bernoulli rounds; word_step_pre reads two words instead).
 // kernels/fhp_step/opcount.py counts them per pipe from the sm_90a SASS
 // of op_count.cu, and chip_smoke.py prints the count and the bound it
-// sets; PERF.md keeps both.  At T = 8 the integer instructions, not the
-// 3.35 TB/s of device memory, are the bound; the apron adds
-// (bh+2T)(bw+2T)/(bh*bw) redundant work per step.  This first version
-// keeps the design simple; PERF.md holds its times.
+// sets.  At T = 8 the integer ALU pipe, not the 3.35 TB/s of device
+// memory, is the bound; a one-step launch is bound by its bytes.  Beyond
+// the bound's word-steps a launch computes the apron's (sum_s (R-2s-2) x
+// (W-2s-2) / (T bh bw) - 1 more), the lanes its warps leave idle where a
+// row is narrower than its passes, and its own indexing and barriers.
+//
+// What the design does about it (fhp_step.cuh has the layout):
+// - Row-mapped threads: a warp covers 32 adjacent words of one tile row,
+//   twice (columns c and c + 32), so the RNG row and row parity are
+//   warp-uniform, read from a table built once per tile, and the RNG and
+//   source columns are computed once per thread per tile; the step,
+//   moment and store loops hold no runtime division or modulo, and no
+//   tap's shift differs inside a warp.  The two words of a thread share
+//   their row's setup and address registers.
+// - One stepping buffer: each round of rows is computed into registers,
+//   then written back in place one slot higher, so no round overwrites a
+//   row that a later round reads.  A 32 x 32 tile at T = 8 needs 73,728 B
+//   where two ping-pong buffers took 147,456 B; the default 40 x 48 tile
+//   with its apron, 56 x 64 words, takes 114,688 B for eight planes.
+// - Several resident blocks per SM (route (a); no persistent grid): two
+//   512-thread blocks share an SM, 32 warps, so one block's apron loads
+//   and stores overlap the other's steps.  Loads are cp.async, issued all
+//   at once: 16-byte chunks where a row segment does not wrap or clamp
+//   and Wd % 4 == 0, 4-byte copies elsewhere; interior stores are 16-byte
+//   where aligned.  __launch_bounds__(512, 2) caps the registers at 64 a
+//   thread (ptxas reports no spills).
+// - Planes PS_FIXED words apart whenever the tile fits them (the default
+//   tiles do), a second instantiation of each mode: every tap is then a
+//   shared load at an immediate offset from one address register.
+// - The 16 Bernoulli rounds are unrolled, so their independent hashes
+//   interleave; pq's bits are kernel parameters used as logic operands,
+//   and the rounds below pq's lowest set bit are predicated off four at
+//   a time.
+// Tensor cores (wgmma, mma) do not apply: the step is bitwise logic,
+// shifts and 32-bit integer hashes, with no matrix product.  Thread-block
+// clusters, which could share apron rows between neighbouring tiles, are
+// left for later.
+//
+// Moments: after each recorded step each thread popcounts its interior
+// words inside the moment window (__popc), the block reduces by warp
+// shuffles and shared atomics, and one thread adds into the (B, n_rec,
+// n_moments) int32 output with atomicAdd -- integer adds, so the sum is
+// exact in any order.  The output is always a fresh array: where the
+// reference aliases its extended-mode carry in place (``donate``), the
+// host loop here ping-pongs between launches, which costs memory, not
+// results.
 #include <cuda_runtime.h>
 
 #include "fhp_step.cuh"
 
 namespace fhp {
 
-static const int THREADS = 256;
+static const int MIN_BLOCKS = 2;  // per SM: at most 64 registers a thread
 
-template <class Rule, bool STATIC, int MODE>
-__global__ void __launch_bounds__(THREADS) fhp_step_kernel(Params P) {
+// FIXED: the tile buffer's planes are PS_FIXED words apart (P.PS).
+template <class Rule, bool STATIC, int MODE, bool FIXED>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    fhp_step_kernel(Params P) {
   typedef Moments<Rule, STATIC> M;
-  extern __shared__ uint32_t smem[];
-  __shared__ int blk[M::N_TERMS];
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int blk[M::N_TERMS];
+  const int x = threadIdx.x, w = threadIdx.y;
+  const int ps = FIXED ? PS_FIXED : P.PS;
   Tile tl = make_tile(P, blockIdx.x, blockIdx.y, blockIdx.z);
-  uint32_t* buf[2] = {smem, smem + NPS * tl.RW};
-  uint32_t* sol = smem + 2 * NPS * tl.RW;
+  Smem sm = carve(P, NPS, STATIC, smem);
 
-  for (int i = threadIdx.x; i < NPS * tl.RW; i += blockDim.x)
-    load_elem<NPS, MODE>(P, tl, buf[0], i);
-  if (STATIC)
-    for (int i = threadIdx.x; i < tl.RW; i += blockDim.x)
-      load_solid_elem<MODE>(P, tl, sol, i);
-  if (threadIdx.x < M::N_TERMS) blk[threadIdx.x] = 0;
+  load_tile<MODE>(P, tl, P.in + (long)tl.b * NPS * P.H * P.Wd, NPS, sm.buf,
+                  x, w);
+  if (STATIC) load_tile<MODE>(P, tl, P.solid, 1, sm.sol, x, w);
+  for (int i = w * 32 + x; i < P.R; i += THREADS)
+    sm.rows[i] = row_entry<MODE>(P, tl, i);
+  Lane ln = make_lane<MODE>(P, tl, x, w);
+  if (w == 0 && x < M::N_TERMS) blk[x] = 0;
+  copy_wait();
   __syncthreads();
 
   for (int s = 0; s < P.T; ++s) {
-    const uint32_t* cur = buf[s & 1];
-    uint32_t* nxt = buf[(s + 1) & 1];
-    int n = (tl.R - 2 * s - 2) * (tl.W - 2 * s - 2);
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      step_elem<Rule, STATIC, MODE>(P, tl, s, i, cur, nxt, sol);
-    __syncthreads();
+    StepGeom g = step_geom(P, s);
+    for (int a = g.r_lo; a < g.r_hi; a += P.NWR) {
+      const int r = a + ln.wrow;
+      const bool on = !ln.idle && r < g.r_hi;
+      uint32_t o[2][Rule::NP];
+      if (on) compute_row<Rule, STATIC, MODE>(P, tl, ln, g, sm, ps, r, o);
+      __syncthreads();
+      if (on) write_row<Rule, STATIC>(P, tl, ln, g, sm, ps, r, o);
+      __syncthreads();
+    }
     if ((P.record_mask >> s) & 1) {
       int cnt[M::N_TERMS];
       for (int k = 0; k < M::N_TERMS; ++k) cnt[k] = 0;
-      for (int i = threadIdx.x; i < P.bh * P.bw; i += blockDim.x)
-        moment_elem<Rule, STATIC>(P, tl, i, nxt, cnt);
+      if (!ln.idle)
+        for (int r = P.T + ln.wrow; r < P.T + P.bh; r += P.NWR)
+          moment_row<Rule, STATIC>(P, tl, ln, sm, ps, s, r, cnt);
       for (int k = 0; k < M::N_TERMS; ++k) {
         int v = cnt[k];
         for (int off = 16; off > 0; off >>= 1)
           v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-        if ((threadIdx.x & 31) == 0) atomicAdd(&blk[k], v);
+        if (x == 0) atomicAdd(&blk[k], v);
       }
       __syncthreads();
-      if (threadIdx.x == 0) {
+      if (x == 0 && w == 0) {
         int m[M::N_MOMENTS];
         M::combine(blk, m);
         int rec = __popc((unsigned)P.record_mask & ((1u << s) - 1u));
         int32_t* dst =
             P.moments + ((long)tl.b * P.n_rec + rec) * M::N_MOMENTS;
         for (int k = 0; k < M::N_MOMENTS; ++k) atomicAdd(dst + k, m[k]);
-        // Reused after the next step's barrier.
+        // Reused after the next step's barriers.
         for (int k = 0; k < M::N_TERMS; ++k) blk[k] = 0;
       }
     }
   }
+  store_tile(P, tl, NPS, sm.buf, x, w);
+}
 
-  const uint32_t* fin = buf[P.T & 1];
-  for (int i = threadIdx.x; i < NPS * P.bh * P.bw; i += blockDim.x)
-    store_elem<NPS>(P, tl, fin, i);
+// What a launch of one instantiation needs and gets; returns a
+// cudaError_t code.  info[]: resident blocks per SM, registers a thread,
+// local (spill) bytes a thread, dynamic shared bytes a block.
+template <class Rule, bool STATIC, int MODE, bool FIXED>
+static int prepare(const Params& P, int* info) {
+  const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
+  if (P.NWR == 0) return (int)cudaErrorInvalidValue;  // W > 64 NW words
+  size_t smem = (size_t)smem_words(NPS, P.bh, P.bw, P.T, STATIC) * 4;
+  auto kern = fhp_step_kernel<Rule, STATIC, MODE, FIXED>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess || !info) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS,
+                                                    smem);
+  info[0] = blocks;
+  info[1] = fa.numRegs;
+  info[2] = (int)fa.localSizeBytes;
+  info[3] = (int)smem;
+  return (int)e;
+}
+
+template <class Rule, bool STATIC, int MODE, bool FIXED>
+static int launch_as(const Params& P, cudaStream_t stream, int* info) {
+  int e = prepare<Rule, STATIC, MODE, FIXED>(P, info);
+  if (e || info) return e;
+  const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
+  size_t smem = (size_t)smem_words(NPS, P.bh, P.bw, P.T, STATIC) * 4;
+  dim3 grid((P.Wd + P.bw - 1) / P.bw, (P.H + P.bh - 1) / P.bh, P.B);
+  fhp_step_kernel<Rule, STATIC, MODE, FIXED>
+      <<<grid, dim3(32, NW), smem, stream>>>(P);
+  return (int)cudaGetLastError();
 }
 
 template <class Rule, bool STATIC, int MODE>
-static int launch(const Params& P, cudaStream_t stream) {
-  const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
-  size_t smem = (size_t)smem_words(NPS, P.bh, P.bw, P.T, STATIC) * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      fhp_step_kernel<Rule, STATIC, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((P.Wd + P.bw - 1) / P.bw, (P.H + P.bh - 1) / P.bh, P.B);
-  fhp_step_kernel<Rule, STATIC, MODE><<<grid, THREADS, smem, stream>>>(P);
-  return (int)cudaGetLastError();
+static int launch(const Params& P, cudaStream_t stream, int* info) {
+  if (P.PS == PS_FIXED)
+    return launch_as<Rule, STATIC, MODE, true>(P, stream, info);
+  return launch_as<Rule, STATIC, MODE, false>(P, stream, info);
 }
 
 // Static solid runs in periodic and extended mode only; PRE_RNG is a
 // one-step, 8-plane mode (the reference refuses the same combinations).
+// With ``info`` the instantiation is prepared and described, not launched.
 template <class Rule>
-static int launch_rule(const Params& P, int mode, cudaStream_t stream) {
+static int launch_rule(const Params& P, int mode, cudaStream_t stream,
+                       int* info) {
   if (P.solid) {
     if constexpr (Rule::SOLID >= 0) {
-      if (mode == PERIODIC) return launch<Rule, true, PERIODIC>(P, stream);
-      if (mode == EXTENDED) return launch<Rule, true, EXTENDED>(P, stream);
+      if (mode == PERIODIC)
+        return launch<Rule, true, PERIODIC>(P, stream, info);
+      if (mode == EXTENDED)
+        return launch<Rule, true, EXTENDED>(P, stream, info);
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (mode == PERIODIC) return launch<Rule, false, PERIODIC>(P, stream);
-  if (mode == EXTENDED) return launch<Rule, false, EXTENDED>(P, stream);
+  if (mode == PERIODIC) return launch<Rule, false, PERIODIC>(P, stream, info);
+  if (mode == EXTENDED) return launch<Rule, false, EXTENDED>(P, stream, info);
   if (mode == PRE_RNG && P.T == 1)
-    return launch<Rule, false, PRE_RNG>(P, stream);
+    return launch<Rule, false, PRE_RNG>(P, stream, info);
+  return (int)cudaErrorInvalidValue;
+}
+
+static int dispatch(const Params& P, int rule, int mode, cudaStream_t st,
+                    int* info) {
+#define FHP_CASE(R) \
+  case R::ID:       \
+    return launch_rule<R>(P, mode, st, info);
+  switch (rule) { FHP_FOR_EACH_RULE(FHP_CASE) }
+#undef FHP_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -145,11 +225,21 @@ extern "C" int fhp_step_launch(const void* in, void* out, const void* solid,
   fhp::Params P = fhp::make_params(in, out, solid, chi, acc, moments, B, H,
                                    Wd, bh, bw, T, t0, y0, xw0, hg, wdg, r0,
                                    r1, c0, c1, pq, record_mask);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FHP_CASE(R) \
-  case R::ID:       \
-    return fhp::launch_rule<R>(P, mode, st);
-  switch (rule) { FHP_FOR_EACH_RULE(FHP_CASE) }
-#undef FHP_CASE
-  return (int)cudaErrorInvalidValue;
+  return fhp::dispatch(P, rule, mode, static_cast<cudaStream_t>(stream),
+                       nullptr);
+}
+
+// The instantiation a launch with these arguments would run, without
+// launching it: info[0] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), info[1] registers a
+// thread, info[2] local (spill) bytes a thread, info[3] dynamic shared
+// bytes a block.  `solid` only selects static-solid mode (any non-null
+// value).  Returns a cudaError_t code.
+extern "C" int fhp_step_info(int rule, int mode, int solid, int bh, int bw,
+                             int T, int* info) {
+  static uint32_t dummy[4];
+  fhp::Params P = fhp::make_params(dummy, dummy, solid ? dummy : nullptr,
+                                   nullptr, nullptr, nullptr, 1, bh, bw, bh,
+                                   bw, T, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0);
+  return fhp::dispatch(P, rule, mode, nullptr, info);
 }

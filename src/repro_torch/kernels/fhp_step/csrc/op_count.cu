@@ -20,8 +20,26 @@
 namespace {
 
 typedef Rule_fhp2 R;
+
+// The lowest set bit of pq (Params::pq_lo), at compile time.
+__host__ __device__ constexpr int lowest_bit(int pq) {
+  int b = 0;
+  while (pq > 0 && !((pq >> b) & 1)) ++b;
+  return b;
+}
+
 const int HOOD = R::NP * 9;  // every plane's 3 x 3 word neighbourhood
 const int N = 32;            // stride between one thread's words
+
+// fhp::PqBits for the probes: PROBE_PQ's bits known at compile time, so
+// each comparator round compiles to the least it needs (the kernel, which
+// gets pq at run time, spends one more logic op a round).
+struct ProbeBits {
+  __device__ __forceinline__ uint32_t compare(uint32_t lt, uint32_t r,
+                                              int i) const {
+    return (PROBE_PQ >> i) & 1 ? lt | ~r : lt & ~r;
+  }
+};
 
 template <int ODD, bool PRE>
 __device__ __forceinline__ void step_probe(const uint32_t* __restrict__ in,
@@ -32,12 +50,10 @@ __device__ __forceinline__ void step_probe(const uint32_t* __restrict__ in,
   #pragma unroll
   for (int k = 0; k < HOOD; ++k) w[k] = in[k * N + i];
   fhp::Reader<false, R::SOLID> rd;
-  rd.cur = w;
+  rd.ctr = w + 4;  // the centre of each plane's 3 x 3 words
+  rd.ps = 9;
+  rd.rs = 3;
   rd.sol = nullptr;
-  rd.RW = 9;
-  rd.W = 3;
-  rd.r = 1;
-  rd.c = 1;
   rd.odd[0] = rd.odd[2] = !ODD;  // rows r + 1 and r - 1
   rd.odd[1] = ODD;
   uint32_t o[R::NP];
@@ -46,7 +62,7 @@ __device__ __forceinline__ void step_probe(const uint32_t* __restrict__ in,
                           PROBE_PQ > 0, t, o);
   else      // the row and word counters
     fhp::word_step<R>(rd, in[HOOD * N + i], in[(HOOD + 1) * N + i], t,
-                      PROBE_PQ, o);
+                      PROBE_PQ, lowest_bit(PROBE_PQ), ProbeBits(), o);
   #pragma unroll
   for (int p = 0; p < R::NP; ++p) out[p * N + i] = o[p];
 }

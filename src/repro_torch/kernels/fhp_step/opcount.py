@@ -10,8 +10,11 @@ The same word-step with its random words read from memory
 ``counts`` builds them with ``nvcc -cubin`` for ``sm_90a``, reads their
 SASS with ``cuobjdump`` and sorts each instruction onto the pipe that
 executes it, less the probes' own indexing, loads and stores (the ``copy``
-probe).  The tiled kernel's index and modulo arithmetic and its apron's
-repeated word-steps are not counted: the step does not need them.
+probe).  The tiled kernel's indexing, shared-memory traffic and barriers
+and its apron's repeated word-steps are not counted: the step does not
+need them.  ``loop_bodies`` counts the built kernel's own loops instead
+(``cuobjdump -sass`` of the library), so the round loop's instructions
+per word-step can stand beside the probe's.
 
 ``ops_ms`` turns counts into the least time for a number of word-steps:
 the largest of each pipe's instructions over its rate and of all of them
@@ -39,6 +42,7 @@ from repro_torch.kernels.fhp_step import build
 SOURCE = build.CSRC / "op_count.cu"
 F32_FLOPS_PER_S = 67e12
 SM_CLOCKS_PER_S = F32_FLOPS_PER_S / (128 * 2)        # summed over the SMs
+WORDS_PER_ROUND = 2   # word-steps a thread computes per round (fhp_step.cuh)
 LANES_PER_SM_CLOCK = {"alu": 64, "fma": 64, "popc": 16, "issue": 128}
 
 PIPES = {
@@ -103,6 +107,46 @@ def word_step_counts(sass: str) -> Dict[str, Dict[str, float]]:
             "pre": mean_of("pre_even", "pre_odd"),
             "terms": {k: max(0, terms[k] - base[k]) for k in base},
             "opcodes": dict(f["step_even"].most_common())}
+
+
+_ADDR_INSN = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+_TARGET = re.compile(r"(0x[0-9a-f]+)")
+
+
+def loop_bodies(sass: str, name_part: str) -> list:
+    """The loops of the first function whose name contains ``name_part``
+    in ``cuobjdump -sass`` output: one dict per backward branch, with the
+    instructions from its target to the branch by pipe (``pipe_counts``'
+    pipes, plus ``shared`` loads and stores and ``barriers``), largest
+    first.  A kernel's round loop is the one with two barriers."""
+    insns, cur = [], None
+    for line in sass.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            if insns:
+                break
+            cur = name_part in m.group(1)
+            continue
+        m = _ADDR_INSN.match(line)
+        if m and cur:
+            insns.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                          m.group(3)))
+    loops = []
+    for addr, op, rest in insns:
+        t = _TARGET.search(rest) if op == "BRA" else None
+        if t is None or int(t.group(1), 16) >= addr:
+            continue
+        lo = int(t.group(1), 16)
+        ops = collections.Counter(o for a, o, _ in insns if lo <= a <= addr)
+        body = dict.fromkeys(("alu", "fma", "popc", "other"), 0)
+        for o, n in ops.items():
+            if o not in NOT_COUNTED:
+                body[PIPES.get(o, "other")] += n
+        body.update(shared=ops["LDS"] + ops["STS"], barriers=ops["BAR"],
+                    total=sum(ops.values()), start=lo, end=addr)
+        loops.append(body)
+    return sorted(loops, key=lambda b: -b["total"])
 
 
 def _run(cmd) -> str:

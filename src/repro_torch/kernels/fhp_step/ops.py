@@ -27,6 +27,7 @@ reference's in-place carry, a memory saving) is refused.
 from __future__ import annotations
 
 import collections
+import ctypes
 import functools
 from typing import Tuple
 
@@ -43,7 +44,9 @@ from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 LAUNCHES: collections.Counter = collections.Counter()
 
 SMEM_BYTES_PER_BLOCK = 232_448    # H100: 227 KB of shared memory per block
-MAX_TILE = 32
+MAX_TILE = (56, 64)               # pick_tile's tile with its apron
+PLANE_WORDS = MAX_TILE[0] * MAX_TILE[1]  # the kernel's PS_FIXED
+MAX_TILE_WORDS = 1024             # bw + 2T: 16 warps of 64 words a row
 MAX_STEPS_PER_LAUNCH = 8          # run_extended's default T
 _GRID_YZ_LIMIT = 65_535
 _RULE_ID = {name: i for i, name in enumerate(codegen.RULES)}
@@ -70,34 +73,51 @@ def rng_words(shape, t: int, *, p_force: float = 0.0, y0: int = 0,
     return chi, acc
 
 
+def row_pitch(bw: int, steps: int) -> int:
+    """Words per row of the kernel's tile buffer (``row_pitch`` in
+    ``csrc/fhp_step.cuh``): ``bw + 2T``, plus 3 where the tile origin can
+    sit off a 16-byte boundary, rounded up to a multiple of 4."""
+    w = bw + 2 * steps
+    return (w + (3 if (bw | steps) & 3 else 0) + 3) & ~3
+
+
 def smem_bytes(bh: int, bw: int, steps: int = 1, static_solid: bool = False,
                n_planes: int = 8) -> int:
-    """Dynamic shared memory of one block: two ping-pong buffers of the
-    ``(bh + 2T) x (bw + 2T)`` tile for every stack plane, plus the solid
-    plane's tile in static-solid mode."""
+    """Dynamic shared memory of one block: one buffer of the ``(bh + 2T) x
+    (bw + 2T)`` tile (at ``row_pitch``; a plane of up to ``PLANE_WORDS``
+    words takes that many, the kernel's compile-time plane stride) for
+    every stack plane, the solid plane's tile in static-solid mode, and
+    one word per tile row (the kernel's table of RNG rows)."""
     nps = n_planes - 1 if static_solid else n_planes
-    rw = (bh + 2 * steps) * (bw + 2 * steps)
-    return 4 * (2 * nps * rw + (rw if static_solid else 0))
+    ps = max(PLANE_WORDS, (bh + 2 * steps) * row_pitch(bw, steps))
+    return 4 * (nps * ps + (ps if static_solid else 0) + bh + 2 * steps)
 
 
 def _tile_ok(bh: int, bw: int, h: int, wd: int, steps: int,
              static_solid: bool, n_planes: int) -> bool:
     return (steps <= bh and (bw >= wd or steps <= bw)
+            and bw + 2 * steps <= MAX_TILE_WORDS
             and smem_bytes(bh, bw, steps, static_solid, n_planes)
             <= SMEM_BYTES_PER_BLOCK)
 
 
 def pick_tile(h: int, wd: int, steps: int = 1, static_solid: bool = False,
               n_planes: int = 8) -> Tuple[int, int]:
-    """``(block_rows, block_words)``: the largest square power-of-two tile
-    up to 32 x 32 words, clipped to the lattice, that admits the
-    ``steps``-row / ``steps``-word apron and fits the H100's shared memory."""
-    t = MAX_TILE
-    while t >= 1:
-        bh, bw = min(t, h), min(t, wd)
+    """``(block_rows, block_words)``: the most words whose row with its
+    apron fills whole warp rows of ``MAX_TILE[1]`` words (``bw + 2T`` a
+    multiple of it, with ``bw >= T``), and the most rows whose tile with
+    its apron fits one ``PLANE_WORDS`` plane (the kernel's compile-time
+    plane stride; rows halved until the tile fits the H100's shared
+    memory and admits the ``steps``-row apron), both clipped to the
+    lattice."""
+    span = MAX_TILE[1]
+    words = -(-3 * steps // span) * span - 2 * steps
+    rows = max(PLANE_WORDS // row_pitch(words, steps) - 2 * steps, steps)
+    while rows >= 1:
+        bh, bw = min(rows, h), min(words, wd)
         if _tile_ok(bh, bw, h, wd, steps, static_solid, n_planes):
             return bh, bw
-        t //= 2
+        rows //= 2
     raise ValueError(f"no valid tile for H={h}, Wd={wd}, "
                      f"steps_per_launch={steps}")
 
@@ -189,6 +209,9 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
         raise ValueError(f"steps_per_launch={T} > block_rows={bh}")
     if bw < wd and T > bw:
         raise ValueError(f"steps_per_launch={T} > block_words={bw}")
+    if bw + 2 * T > MAX_TILE_WORDS:
+        raise ValueError(f"block_words={bw} + 2 x steps_per_launch={T} > "
+                         f"{MAX_TILE_WORDS} words per tile row")
     need = smem_bytes(bh, bw, T, static_solid, spec.n_planes)
     if need > SMEM_BYTES_PER_BLOCK:
         raise ValueError(f"tile ({bh}, {bw}) at T={T} needs {need} B of "
@@ -271,6 +294,23 @@ def _launch(planes, solid, chi, acc, rule_id, mode_id, t, y0, xw0, hg, wdg,
     if err:
         raise RuntimeError(f"fhp_step kernel launch failed: CUDA error {err}")
     return (out, mom) if rs else out
+
+
+def kernel_info(variant: str = "fhp2", mode: str = "periodic",
+                static_solid: bool = False, block_rows: int = 32,
+                block_words: int = 32, steps_per_launch: int = 8) -> dict:
+    """What the card gives the kernel instantiation of a launch with these
+    arguments, asked without launching it: resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (spill) bytes a thread, and dynamic shared bytes a block."""
+    info = (ctypes.c_int * 4)()
+    err = build.library().fhp_step_info(
+        _RULE_ID[variant], _MODE_ID[mode], int(static_solid), block_rows,
+        block_words, steps_per_launch, info)
+    if err:
+        raise RuntimeError(f"fhp_step_info failed: CUDA error {err}")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), info))
 
 
 def _launch_schedule(sizes, offset: int, k: int):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.core import rulespec as jrulespec
+from repro.kernels.fhp_step import ops as jops
 from repro.kernels.fhp_step.ops import run_pallas
 from repro_torch.core import carry, prng, rulespec
 from repro_torch.kernels.fhp_step import build, check, codegen, opcount, ops
@@ -138,9 +139,19 @@ def host_kernel(tmp_path_factory):
     lib = tmp_path_factory.mktemp("fhp_host") / "libfhp_host.so"
     subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-o",
                     str(lib), str(src)], check=True, timeout=300)
-    dll = ctypes.CDLL(str(lib))
+    return _host_dll(lib)
+
+
+def _host_dll(cxx_lib):
+    dll = ctypes.CDLL(str(cxx_lib))
     dll.fhp_step_host.argtypes = build.launch_argtypes()
     dll.fhp_step_host.restype = ctypes.c_int
+    dll.fhp_plan_host.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+    dll.fhp_plan_host.restype = ctypes.c_int
+    dll.fhp_bernoulli_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_uint,
+                                       ctypes.c_int, ctypes.c_void_p]
+    dll.fhp_bernoulli_host.restype = None
     return dll
 
 
@@ -250,6 +261,204 @@ def test_kernel_body_precomputed_rng_matches_plain_version(host_kernel,
         assert torch.equal(gm, wm), (tile, p_force)
 
 
+# Row-mapped tiles: one or two warps per tile row (W = bw + 2T up to 80
+# words), several rounds of rows per step,
+# 16-byte copies (Wd % 4 == 0) with tile origins off and on a 16-byte
+# boundary, narrow (bw 1, prime) and ragged tiles, and tiles as wide as
+# the lattice.
+ROW_MAPPED_TILES = [(8, (32, 48)), (8, (16, 64)), (1, (8, 30)), (2, (33, 20)),
+                    (3, (40, 1)), (4, (12, 7)), (2, (9, 72)), (8, (40, 72)),
+                    (1, (5, 130))]
+
+
+@pytest.mark.parametrize("T,tile", ROW_MAPPED_TILES, ids=str)
+@pytest.mark.parametrize("variant,static", [("fhp2", False), ("fhp3", True),
+                                            ("bml", False)])
+def test_kernel_body_row_mapped_tiles(host_kernel, variant, static, T, tile):
+    # On a 40 x 72-word lattice: periodic with moments against the plain
+    # version, extended (y0 < 0) on its validity window, and K2 where T = 1.
+    spec = rulespec.get_rule(variant)
+    rng = np.random.default_rng(T * 100 + tile[1])
+    h, wd = 40, 72
+    p_force = 0.0 if variant == "bml" else 0.05
+    w = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                      size=(2, spec.n_planes, h, wd),
+                                      dtype=np.int64).astype(np.int32))
+    solid = None
+    if static:
+        solid = w[0, spec.solid_plane].clone()
+        w = w[:, :spec.solid_plane].contiguous()
+    rs = tuple(range(T - 1, -1, -3))
+    got, gm = _host_step(host_kernel, w, 11, variant, T, tile, p_force, 7, 5,
+                         solid, rs)
+    want, wm = fhp_step_ref(w, 11, p_force=p_force, y0=7, xw0=5,
+                            variant=variant, steps_per_launch=T, solid=solid,
+                            record_steps=rs)
+    assert torch.equal(got, want) and torch.equal(gm, wm)
+
+    bounds = (T, h - T, 1, wd - 1)
+    glob = dict(extended=True, hg=2 * h + 4, wdg=wd + 3)
+    got, gm = _host_step(host_kernel, w, 11, variant, T, tile, p_force, -T,
+                         -1, solid, rs, mode=1, hg=glob["hg"],
+                         wdg=glob["wdg"], bounds=bounds)
+    want, wm = fhp_step_ref(w, 11, p_force=p_force, y0=-T, xw0=-1,
+                            variant=variant, steps_per_launch=T, solid=solid,
+                            record_steps=rs, moment_bounds=bounds, **glob)
+    win = (..., slice(T, h - T), slice(1, wd - 1))
+    assert torch.equal(got[win], want[win]) and torch.equal(gm, wm)
+
+    if T == 1 and not static and spec.needs_rng:
+        chi, acc = ops.rng_words((h, wd), 11, p_force=p_force, y0=7, xw0=5,
+                                 variant=variant)
+        got, gm = _host_step(host_kernel, w, 11, variant, 1, tile, p_force,
+                             7, 5, None, (0,), mode=2, chi=chi, acc=acc)
+        want, wm = fhp_step_ref(w, 11, p_force=p_force, y0=7, xw0=5,
+                                variant=variant, record_steps=(0,))
+        assert torch.equal(got, want) and torch.equal(gm, wm)
+
+
+@pytest.mark.parametrize("variant,T,mode,static", [
+    ("fhp2", 2, 0, False), ("fhp3", 1, 0, True), ("bml", 2, 0, False),
+    ("fhp2", 2, 1, False), ("fhp3", 1, 2, False)])
+def test_kernel_body_matches_reference_kernel(host_kernel, variant, T, mode,
+                                              static):
+    # The row-mapped body against the reference's Pallas kernel (interpret
+    # mode) for one launch with moments on a 16-row, 16-word lattice with
+    # 16-byte copies and a ragged (12, 12) tile: periodic (mode 0, with
+    # the static-solid layout for fhp3), extended (1, y0 < 0) and
+    # precomputed RNG (2).
+    spec = rulespec.get_rule(variant)
+    w = words(21 + T + mode, (2, spec.n_planes, 16, 16))
+    p_force = 0.0 if variant == "bml" else 0.05
+    y0, xw0 = (-T, -1) if mode == 1 else (3, 2)
+    x = carry.planes_from_reference(w, CPU)
+    solid = jsolid = None
+    if static:
+        sp = spec.solid_plane
+        jsolid, w = jnp.asarray(w[0, sp]), w[:, :sp]
+        solid, x = x[0, sp].clone(), x[:, :sp].contiguous()
+    kw = dict(p_force=p_force, y0=y0, xw0=xw0, variant=variant,
+              steps_per_launch=T)
+    rs = tuple(range(T))
+    if mode == 1:
+        glob = dict(hg=36, wdg=19)
+        want, wm = jops.fhp_step_pallas(jnp.asarray(w), 5, extended=True,
+                                        record_steps=rs, block_rows=8,
+                                        moment_bounds=(T, 16 - T, 1, 15),
+                                        **glob, **kw)
+        got, gm = _host_step(host_kernel, x, 5, variant, T, (12, 12),
+                             p_force, y0, xw0, None, rs, mode=1,
+                             bounds=(T, 16 - T, 1, 15), **glob)
+        win = (..., slice(T, 16 - T), slice(1, 15))
+        want, got = np.asarray(want)[win], carry.planes_to_reference(got)[win]
+    else:
+        want, wm = jops.fhp_step_pallas(
+            jnp.asarray(w), 5, record_steps=rs, solid=jsolid,
+            rng_in_kernel=mode != 2, **kw)
+        chi = acc = None
+        if mode == 2:
+            chi, acc = ops.rng_words((16, 16), 5, p_force=p_force, y0=y0,
+                                     xw0=xw0, variant=variant)
+        got, gm = _host_step(host_kernel, x, 5, variant, T, (12, 12),
+                             p_force, y0, xw0, solid, rs, mode=mode,
+                             chi=chi, acc=acc)
+        want, got = np.asarray(want), carry.planes_to_reference(got)
+    assert np.array_equal(want, got)
+    assert np.array_equal(np.asarray(wm), carry.moments_to_reference(gm))
+
+
+def _plan(dll, store, extended, vec, wd, bw, T, tx):
+    n = bw + 2 * T
+    bufs = [np.zeros(n, dtype=np.int32) for _ in range(4)]
+    units = dll.fhp_plan_host(store, extended, vec, wd, bw, T, tx,
+                              *(b.ctypes.data for b in bufs))
+    return [tuple(int(b[u]) for b in bufs) for u in range(units)]
+
+
+@pytest.mark.parametrize("extended", [0, 1])
+@pytest.mark.parametrize("vec", [0, 1])
+@pytest.mark.parametrize("wd,bw,T", [(1024, 32, 8), (1024, 48, 8),
+                                     (1024, 62, 1), (72, 30, 1), (16, 72, 2),
+                                     (12, 5, 3), (8, 1, 1), (124, 32, 4)])
+def test_copy_plan_covers_every_word_once(host_kernel, extended, vec, wd, bw,
+                                          T):
+    # Every apron word of every tile of the row is loaded exactly once from
+    # the word src_index names, and every interior word that lies in the
+    # array stored once; 16-byte chunks only with vec, from a source and
+    # to a shared-memory word that are multiples of 4, and never across a
+    # wrap or clamp.
+    n = bw + 2 * T
+    for tx in range(0, wd, bw):
+        cover = np.zeros(n, dtype=int)
+        for c, width, src, dst in _plan(host_kernel, 0, extended, vec, wd,
+                                        bw, T, tx):
+            cover[c:c + width] += 1
+            if width == 4:
+                assert vec and src % 4 == 0 and dst % 4 == 0
+                assert 0 <= src and src + 4 <= wd and src == tx - T + c
+            else:
+                g = tx - T + c
+                want = (min(max(g, 0), wd - 1) if extended else g % wd)
+                assert src == want and dst == (tx - T) % 4 + c
+        assert (cover == 1).all(), (tx, cover)
+        cover = np.zeros(n, dtype=int)
+        for c, width, src, dst in _plan(host_kernel, 1, extended, vec, wd,
+                                        bw, T, tx):
+            cover[c:c + width] += 1
+            assert src == tx + c and dst == (tx - T) % 4 + T + c
+            if width == 4:
+                assert vec and src % 4 == 0 and dst % 4 == 0
+        assert (cover[:min(bw, wd - tx)] == 1).all()
+        assert not cover[min(bw, wd - tx):].any()
+    if vec and wd % 4 == 0 and bw >= 8:
+        assert any(u[1] == 4 for u in _plan(host_kernel, 0, extended, 1, wd,
+                                            bw, T, 0))
+
+
+@pytest.mark.parametrize("pq", [1, 2, 1966, 0x8000, 0xFFFF, 0, 65536,
+                                0x1234, 0x0F00, 0x7FFF])
+def test_unrolled_bernoulli_word(host_kernel, pq):
+    # The kernel's unrolled, predicated comparator against the port's and
+    # the reference's bernoulli_words_at on random signed coordinates.
+    from repro.core import prng as jprng
+    rng = np.random.default_rng(pq)
+    n = 256
+    rows = rng.integers(-2 ** 31, 2 ** 31, size=n).astype(np.int32)
+    cols = rng.integers(-2 ** 31, 2 ** 31, size=n).astype(np.int32)
+    t = 12345
+    got = np.zeros(n, dtype=np.uint32)
+    host_kernel.fhp_bernoulli_host(rows.ctypes.data, cols.ctypes.data, n, t,
+                                   pq, got.ctypes.data)
+    p = pq / 65536
+    want = prng.bernoulli_words_at(torch.from_numpy(rows),
+                                   torch.from_numpy(cols), t, p)
+    assert np.array_equal(got.view(np.int32), want.numpy())
+    jwant = jprng.bernoulli_words_at(jnp.asarray(rows), jnp.asarray(cols), t,
+                                     p)
+    assert np.array_equal(got, np.asarray(jwant).view(np.uint32))
+
+
+def test_ptxas_report():
+    text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3fhp15fhp_step_kernelI9Rule_fhp2Lb1ELi1ELb1EEEvNS_6ParamsE' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN3fhp15fhp_step_kernel",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, 32 bytes smem, 408 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN3fhp15fhp_step_kernelI8Rule_bmlLb0ELi2ELb0EEEvNS_6ParamsE' for "
+        "'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 64 registers, 16 bytes smem"])
+    assert build.ptxas_report(text) == [
+        {"kernel": "fhp2 static extended, fixed", "registers": 56,
+         "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "bml precomputed_rng", "registers": 64,
+         "spill_stores": 8, "spill_loads": 4}]
+
+
 # ---------------------------------------------------------------------------
 # Argument checks, tiles and device dispatch.
 # ---------------------------------------------------------------------------
@@ -298,8 +507,8 @@ def test_argument_checks():
     with pytest.raises(ValueError, match="record_steps"):
         ops.fhp_step_cuda(w, 0, steps_per_launch=2, record_steps=(2,))
     with pytest.raises(ValueError, match="shared memory"):
-        ops.fhp_step_cuda(w, 0, steps_per_launch=8, block_rows=64,
-                          block_words=64)
+        ops.fhp_step_cuda(w, 0, steps_per_launch=8, block_rows=96,
+                          block_words=96)
 
 
 def test_moment_headroom_refused_before_dispatch():
@@ -315,11 +524,23 @@ def test_moment_headroom_refused_before_dispatch():
 
 
 def test_pick_tile_and_shared_memory():
-    assert ops.smem_bytes(32, 32, 8) == 2 * 8 * 48 * 48 * 4
-    assert ops.pick_tile(4096, 1024, 8) == (32, 32)
-    assert ops.pick_tile(4096, 1024, 8, static_solid=True) == (32, 32)
+    # One tile buffer (no ping-pong buffer) and a word per tile row; a
+    # plane of up to 56 x 64 words takes that many (a compile-time stride).
+    assert ops.smem_bytes(32, 32, 8) == 8 * 3584 * 4 + 48 * 4
+    assert ops.smem_bytes(40, 48, 8, True) == (7 + 1) * 56 * 64 * 4 + 56 * 4
+    assert ops.smem_bytes(64, 64, 8) == 8 * 80 * 80 * 4 + 80 * 4
+    # Tiles whose origin can sit off a 16-byte boundary pad the row pitch.
+    assert ops.row_pitch(32, 8) == 48 and ops.row_pitch(62, 1) == 68
+    assert ops.smem_bytes(64, 62, 1) == 8 * 66 * 68 * 4 + 66 * 4
+    # A tile row with its apron fills one warp's two 32-word passes, and
+    # the tile with its apron one 56 x 64-word plane.
+    assert ops.pick_tile(4096, 1024, 8) == (40, 48)
+    assert ops.pick_tile(4096, 1024, 8, static_solid=True) == (40, 48)
+    assert ops.pick_tile(4096, 1024, 1) == (50, 62)
+    assert ops.pick_tile(2064, 514, 4) == (48, 56)
+    assert ops.pick_tile(64, 1024, 16) == (24, 32)
     assert ops.pick_tile(16, 8, 8) == (16, 8)
-    assert ops.pick_tile(70, 31, 1, n_planes=2) == (32, 31)
+    assert ops.pick_tile(70, 31, 1, n_planes=2) == (50, 31)
     for h, wd, T, sp, n in ((4096, 1024, 8, False, 8), (256, 125, 4, True, 8),
                             (64, 3, 2, False, 2)):
         bh, bw = ops.pick_tile(h, wd, T, sp, n)
@@ -327,6 +548,9 @@ def test_pick_tile_and_shared_memory():
         assert T <= bh and (bw >= wd or T <= bw)
     with pytest.raises(ValueError, match="no valid tile"):
         ops.pick_tile(4, 64, 8)
+    with pytest.raises(ValueError, match="words per tile row"):
+        ops.fhp_step_cuda(torch.zeros((1, 2, 8, 1100), dtype=torch.int32), 0,
+                          variant="bml", block_rows=8, block_words=1100)
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +607,31 @@ def test_sass_counts_by_pipe():
     for bad in (["BRA 0x10;"], ["LDL R5, [R1] ;"]):
         with pytest.raises(RuntimeError, match="straight-line"):
             opcount.word_step_counts(sass + "\n" + _sass({"copy": bad}))
+
+
+def test_loop_bodies_of_built_kernel():
+    # A kernel with a two-barrier round loop inside a step loop, and a
+    # second function that must not be read.
+    body = ["S2R R0, SR_TID.X ;",                       # 0x00
+            "LDS R1, [R0] ;",                            # 0x10 step loop
+            "LOP3.LUT R1, R1, R2, RZ, 0x3c, !PT ;",      # 0x20 round loop
+            "IMAD R3, R1, 0x3, RZ ;",
+            "BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+            "STS [R0], R1 ;",
+            "BAR.SYNC.DEFER_BLOCKING 0x0 ;",
+            "@P0 BRA 0x20 ;",                            # 0x70
+            "@P1 BRA 0x10 ;",                            # 0x80
+            "EXIT ;"]
+    lines = ["\t\tFunction : _ZN3fhp15fhp_step_kernelI9Rule_fhp2Lb0ELi0ELb1E"]
+    lines += [f"        /*{16 * i:04x}*/   {insn}   /* 0x0 */"
+              for i, insn in enumerate(body)]
+    lines += ["\t\tFunction : other", "        /*0000*/   BRA 0x0 ;"]
+    loops = opcount.loop_bodies("\n".join(lines), "fhp2Lb0ELi0ELb1E")
+    assert [(b["start"], b["end"], b["barriers"]) for b in loops] == [
+        (0x10, 0x80, 2), (0x20, 0x70, 2)]
+    assert loops[1] == {"alu": 1, "fma": 1, "popc": 0, "other": 0,
+                        "shared": 1, "barriers": 2, "total": 6,
+                        "start": 0x20, "end": 0x70}
 
 
 def test_ops_ms_takes_the_slowest_pipe():

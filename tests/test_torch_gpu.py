@@ -43,6 +43,15 @@ def test_precomputed_rng_kernel_matches_plain_version(cuda, case):
     assert not bad, "\n".join(bad)
 
 
+@pytest.mark.parametrize("case", [c for c in check.CASES if c.lanes == 3],
+                         ids=str)
+def test_kernel_matches_plain_version_16_byte_rows(cuda, case):
+    # Wd % 4 == 0: the tiles' apron loads and stores take 16-byte chunks.
+    for run_case in (check.run_case, check.run_extended_case):
+        bad = run_case(case, cuda, h=70, wd=32)
+        assert not bad, "\n".join(bad)
+
+
 @pytest.mark.parametrize("overlap,static", [(False, False), (True, False),
                                             (True, True)])
 def test_sharded_path_counts_launches(cuda, overlap, static):
