@@ -10,7 +10,9 @@ no result line):
 1. device and build: the card's name and power limit, torch and CUDA
    versions, the kernel's nvcc build time, ptxas registers and spills per
    instantiation, resident blocks per SM of each mode at its main tile
-   (``ops.kernel_info``), the compiled instructions of one word-step per
+   (``ops.kernel_info``; its shared bytes held equal to ``ops.smem_bytes``,
+   which ``pick_tile`` sizes tiles by), the compiled instructions of one
+   word-step per
    pipe (``kernels/fhp_step/opcount.py``), which set its bound, and the
    instructions of the built kernel's round loop (``cuobjdump -sass``);
 2. parity sweep: the kernel against ``fhp_step_ref`` on the card, bit for
@@ -22,13 +24,18 @@ no result line):
    call -- for 64 fhp2 steps (T = 8, moments every 8) on 4 lanes of the
    4096 x 32768 cylinder scenario; mass conserved at every recorded step,
    the first launch bit-equal to the plain version, and the static-solid
-   twin of lane 0 bit-equal to the 8-plane run;
+   twin of lane 0 bit-equal to the 8-plane run.  The counted run is timed
+   launch by launch (CUDA events around each launch with its output's
+   allocation, the gaps between launches, host time to enqueue, memory
+   segments allocated), then timed again ``MAIN_REPEATS`` times: median,
+   least and most;
 4. times: kernel ms per launch (CUDA events, 20 launches after warm-up),
    site updates per second and the plain version's ms per launch, at
    T in {1, 8} and T = 8 static-solid, beside the card's name and power
    limit; each timed launch is first held bit-equal to its plain version;
    then the T = 8 launch at each tile shape of ``TILES`` (held bit-equal
-   to the launch above), the per-step time at T in {1, 2, 4, 8}, and the
+   to the launch above), a band wider than a block covers (bit-equal at
+   T = 1), the per-step time at T in {1, 2, 4, 8}, and the
    main tile's launch time at those T fitted against the word-steps it
    issues (what a launch costs besides its steps: loads, stores);
 5. extended and K2 parity: the kernel's extended-shard mode through
@@ -39,7 +46,7 @@ no result line):
 6. the sharded path: phase 3's state through ``make_ensemble_run`` on a
    2 x 2 ("data", "model") mesh of four slots on the one card (depth 8,
    T = 8, moments every 8), with and without ``overlap``, bit-equal to
-   phase 3's planes and moments; ``make_run(static_solid=True)`` bit-equal
+   phase 3's planes and moments, each then timed ``MAIN_REPEATS`` times; ``make_run(static_solid=True)`` bit-equal
    to ``run_cuda`` of the same stack; and the precomputed-RNG path
    (``run_cuda(rng_in_kernel=False)``, 8 one-step launches) bit-equal to
    phase 3's first launch.  Every launch counter is set to 0 before each
@@ -58,8 +65,10 @@ plain version.
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
 """
 import concurrent.futures
+import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -71,6 +80,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 LANES, HEIGHT, WIDTH = 4, 4096, 32768
 STEPS, T_MAIN, P_FORCE = 64, 8, 0.03
+MAIN_REPEATS = 7   # timed runs of the main and sharded paths after the first
 SWEEP_H, SWEEP_WD = 256, 125
 # A second sweep width whose rows take the kernel's 16-byte copies.
 SWEEP_WD_ALIGNED = 128
@@ -169,6 +179,85 @@ def _time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def _launch_events(store):
+    """While open, every kernel launch appends (start, end) CUDA events
+    recorded around it to ``store`` (the launch counts are untouched)."""
+    from repro_torch.kernels.fhp_step import ops
+    inner = ops._launch
+
+    def timed(*args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner(*args)
+        ev[1].record()
+        store.append(ev)
+        return out
+
+    ops._launch = timed
+    try:
+        yield
+    finally:
+        ops._launch = inner
+
+
+def _segments() -> int:
+    """Device memory segments the caching allocator has taken so far (its
+    cudaMalloc calls)."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def _path_run(run, *args):
+    """``(result, times)`` of one call ``run(*args)``: wall seconds to its
+    device synchronisation, host seconds until it returned, from CUDA
+    events around each kernel launch (its output's allocation included)
+    the launch ms summed, the ms from the call to its first launch's
+    start and the gaps between launches (ms, summed and largest), and the
+    device memory segments the call allocated."""
+    ev = []
+    torch.cuda.synchronize()
+    seg = _segments()
+    start = torch.cuda.Event(enable_timing=True)
+    with _launch_events(ev):
+        t = time.perf_counter()
+        start.record()
+        res = run(*args)
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    gaps = [a[1].elapsed_time(b[0]) for a, b in zip(ev, ev[1:])]
+    return res, {"wall_s": wall_s, "host_s": host_s,
+                 "kernel_ms": sum(a.elapsed_time(b) for a, b in ev),
+                 "lead_ms": start.elapsed_time(ev[0][0]) if ev else 0.0,
+                 "gap_ms": sum(gaps), "max_gap_ms": max(gaps, default=0.0),
+                 "segments": _segments() - seg}
+
+
+def _fmt_run(r) -> str:
+    return (f"wall {r['wall_s']:.4f} s (host returned after {r['host_s']:.4f}"
+            f" s), launches {r['kernel_ms']:.4f} ms, first launch "
+            f"{r['lead_ms']:.4f} ms after the call, gaps between launches "
+            f"{r['gap_ms']:.4f} ms (largest {r['max_gap_ms']:.4f}), "
+            f"{r['segments']} memory segments allocated")
+
+
+def _repeats(label, card, run, *args) -> float:
+    """Times ``run(*args)`` ``MAIN_REPEATS`` times; prints every run and
+    the median and spread of the walls, returns the median wall seconds."""
+    walls = []
+    for i in range(MAIN_REPEATS):
+        res, r = _path_run(run, *args)
+        del res   # each run finds the memory the last one freed
+        walls.append(r["wall_s"])
+        print(f"[repeat] {card} | {label} run {i + 1}: {_fmt_run(r)}")
+    med = statistics.median(walls)
+    print(f"[time] {card} | {label}: median {med:.4f} s of {MAIN_REPEATS} "
+          f"runs after the first (least {min(walls):.4f}, most "
+          f"{max(walls):.4f})")
+    return med
+
+
 def _extended_sweeps(dev) -> None:
     """Phase 5: the extended-shard and precomputed-RNG sweeps on the card."""
     from repro_torch.kernels.fhp_step import check
@@ -257,12 +346,8 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
         run, sharding = distributed.make_ensemble_run(mesh, STEPS,
                                                       overlap=overlap, **kw)
         placed = sharding.place(planes)
-        torch.cuda.synchronize()
         _reset_counts()
-        t = time.perf_counter()
-        sout, smom = run(placed, 0)
-        torch.cuda.synchronize()
-        walls[overlap] = time.perf_counter() - t
+        (sout, smom), first_run = _path_run(run, placed, 0)
         launches, modes[overlap] = _counts()
         want = rounds * shards * (5 if overlap else 1)
         if launches != want or modes[overlap].get("extended") != want:
@@ -275,10 +360,12 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
                 raise AssertionError(f"sharded run (overlap={overlap}): "
                                      f"{name} differ first at {where}")
         print(f"[sharded] {mesh} of {shards} slots on {dev}, depth {DEPTH}, "
-              f"overlap={overlap}: {walls[overlap]:.4f} s, launches by mode "
-              f"{modes[overlap]}; planes and moments bit-equal to the "
+              f"overlap={overlap}: first run {_fmt_run(first_run)}; launches "
+              f"by mode {modes[overlap]}; planes and moments bit-equal to the "
               f"single-device run")
-    del got, sout
+        del got, sout, smom
+        walls[overlap] = _repeats(f"sharded run, overlap={overlap}", card,
+                                  run, placed, 0)
 
     full = planes.clone()
     full[:, 7] = planes[0, 7]
@@ -324,7 +411,7 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
         print(f"[time] {card} | sharded run, overlap={overlap}: {wall:.4f} s "
               f"for {STEPS} steps ({sites * STEPS / wall:.4e} site-updates/s) "
               f"against {main_s:.4f} s ({sites * STEPS / main_s:.4e}) on one "
-              f"device")
+              f"device (medians)")
     tiles, devs = placed.tiles, sharding.devices
     hl, wdl = tiles[0][0].shape[-2:]
     glob = dict(hg=HEIGHT, wdg=WIDTH // 32, p_force=P_FORCE)
@@ -454,8 +541,13 @@ def main() -> int:
                             ("periodic", False, 1),
                             ("precomputed_rng", False, 1)):
         tile = ops.pick_tile(HEIGHT, WIDTH // 32, T, static)
+        occ = ops.kernel_info("fhp2", mode, static, *tile, T)
         print(f"[occupancy] fhp2 {mode}{' static' if static else ''} T={T} "
-              f"tile {tile}: {ops.kernel_info('fhp2', mode, static, *tile, T)}")
+              f"tile {tile}: {occ}")
+        if occ["smem_bytes"] != ops.smem_bytes(*tile, T, static):
+            raise AssertionError(f"ops.smem_bytes{(*tile, T, static)} = "
+                                 f"{ops.smem_bytes(*tile, T, static)}, the "
+                                 f"kernel takes {occ['smem_bytes']}")
     step, terms = counted["step"], counted["terms"]
     print(f"[bound] compiled fhp2 word-step at p_force {P_FORCE}, per pipe: "
           f"{step}; moment terms per word: {terms}; opcodes of the "
@@ -464,12 +556,11 @@ def main() -> int:
                            str(build.library_path())], capture_output=True,
                           text=True, check=True).stdout
     rounds = [b for b in opcount.loop_bodies(
-        sass, "fhp_step_kernelI9Rule_fhp2Lb0ELi0ELb1E")
+        sass, "fhp_step_kernelI9Rule_fhp2Lb0ELi0E")
         if b["barriers"] == 2]
     if rounds:
         b = rounds[0]
-        print(f"[sass] fhp2 periodic kernel (fixed plane stride), round "
-              f"loop (2 barriers, "
+        print(f"[sass] fhp2 periodic kernel, round loop (2 barriers, "
               f"{opcount.WORDS_PER_ROUND} word-steps a thread): "
               f"{b['total']} instructions, "
               f"{b['total'] / opcount.WORDS_PER_ROUND:.1f} per word-step "
@@ -505,15 +596,11 @@ def main() -> int:
     run, _ = distributed.make_ensemble_run(
         None, STEPS, variant="fhp2", p_force=P_FORCE,
         steps_per_launch=T_MAIN, moments_every=T_MAIN)
-    torch.cuda.synchronize()
     _reset_counts()
-    t = time.perf_counter()
-    out, mom = run(planes, 0)
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t
+    (out, mom), first_run = _path_run(run, planes, 0)
     launches, main_modes = _counts()
     print(f"[main] {LANES} lanes x {HEIGHT} x {WIDTH}, {STEPS} steps: host "
-          f"init {init_s:.2f} s, device run {main_s:.3f} s, "
+          f"init {init_s:.2f} s; first run {_fmt_run(first_run)}; "
           f"{launches} kernel launches, by mode {main_modes}")
     if launches != STEPS // T_MAIN:
         raise AssertionError(f"main path made {launches} kernel launches")
@@ -526,6 +613,7 @@ def main() -> int:
         raise AssertionError("the solid plane changed")
     print(f"[main] mass conserved at all {STEPS // T_MAIN} recorded steps "
           f"in all {LANES} lanes: {mass0.tolist()}")
+    main_s = _repeats("main path", card, run, planes, 0)
 
     first = dict(p_force=P_FORCE, steps_per_launch=T_MAIN,
                  record_steps=(T_MAIN - 1,))
@@ -589,6 +677,18 @@ def main() -> int:
               f"{_lanes(bh, bw, T_MAIN):.3f}x, {occ['blocks_per_sm']} "
               f"blocks/SM, {occ['smem_bytes']} B shared")
     del want
+    # The widest one-row band the kernel took before the row-mapped
+    # redesign, 1208 words at T = 1: it runs as tiles of the widest width a
+    # block covers, bit-equal to the default tile's launch (held against
+    # the plain version above).
+    kw1 = dict(p_force=P_FORCE, steps_per_launch=1)
+    where = check.first_difference(
+        ops.fhp_step_cuda(planes, 0, block_rows=1, block_words=1208, **kw1),
+        ops.fhp_step_cuda(planes, 0, **kw1))
+    if where is not None:
+        raise AssertionError(f"tile (1, 1208) at T=1 differs first at {where}")
+    print(f"[tile] T=1 tile 1 x 1208 (run as 1 x "
+          f"{ops.MAX_TILE_WORDS - 2} tiles): bit-equal to the default tile")
     for T in (1, 2, 4, 8):
         tkw = dict(p_force=P_FORCE, steps_per_launch=T)
         t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
@@ -618,8 +718,8 @@ def main() -> int:
 
     k_ms = results[f"T={T_MAIN}"][0]
     print(f"[time] {card} | main path: {launches} launches x {k_ms:.4f} ms "
-          f"= {launches * k_ms / (main_s * 1e3):.4f} of its {main_s:.4f} s "
-          f"wall time busy in the kernel")
+          f"= {launches * k_ms / (main_s * 1e3):.4f} of its median "
+          f"{main_s:.4f} s wall time busy in the kernel")
     # -- 5-7. this slice: extended and K2 modes, the sharded path ------------
     _extended_sweeps(dev)
     sharded = _sharded_path(dev, planes, out, mom, kp, main_s, card, counted,

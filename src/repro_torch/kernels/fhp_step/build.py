@@ -95,15 +95,13 @@ def library() -> ctypes.CDLL:
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-_KERNEL_NAME = re.compile(
-    r"fhp_step_kernelI\d+(\w+?)Lb([01])ELi(\d)ELb([01])E")
+_KERNEL_NAME = re.compile(r"fhp_step_kernelI\d+(\w+?)Lb([01])ELi(\d)E")
 _MODE_NAMES = ("periodic", "extended", "precomputed_rng")
 
 
 def ptxas_report(text: str) -> list:
     """Registers and spill bytes of each kernel instantiation in ``nvcc
-    -Xptxas -v`` output: dicts of ``kernel`` (rule, static solid, mode,
-    and ``fixed`` for the compile-time plane stride),
+    -Xptxas -v`` output: dicts of ``kernel`` (rule, static solid, mode),
     ``registers``, ``spill_stores`` and ``spill_loads``, in build order."""
     out, cur = [], None
     for line in text.splitlines():
@@ -113,7 +111,6 @@ def ptxas_report(text: str) -> list:
             cur = {"kernel": (f"{k.group(1).replace('Rule_', '')}"
                               f"{' static' if k.group(2) == '1' else ''} "
                               f"{_MODE_NAMES[int(k.group(3))]}"
-                              f"{', fixed' if k.group(4) == '1' else ''}"
                               if k else m.group(1))}
             out.append(cur)
             continue

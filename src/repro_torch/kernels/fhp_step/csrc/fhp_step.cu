@@ -42,9 +42,6 @@
 //   and Wd % 4 == 0, 4-byte copies elsewhere; interior stores are 16-byte
 //   where aligned.  __launch_bounds__(512, 2) caps the registers at 64 a
 //   thread (ptxas reports no spills).
-// - Planes PS_FIXED words apart whenever the tile fits them (the default
-//   tiles do), a second instantiation of each mode: every tap is then a
-//   shared load at an immediate offset from one address register.
 // - The 16 Bernoulli rounds are unrolled, so their independent hashes
 //   interleave; pq's bits are kernel parameters used as logic operands,
 //   and the rounds below pq's lowest set bit are predicated off four at
@@ -70,8 +67,7 @@ namespace fhp {
 
 static const int MIN_BLOCKS = 2;  // per SM: at most 64 registers a thread
 
-// FIXED: the tile buffer's planes are PS_FIXED words apart (P.PS).
-template <class Rule, bool STATIC, int MODE, bool FIXED>
+template <class Rule, bool STATIC, int MODE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     fhp_step_kernel(Params P) {
   typedef Moments<Rule, STATIC> M;
@@ -79,7 +75,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int blk[M::N_TERMS];
   const int x = threadIdx.x, w = threadIdx.y;
-  const int ps = FIXED ? PS_FIXED : P.PS;
   Tile tl = make_tile(P, blockIdx.x, blockIdx.y, blockIdx.z);
   Smem sm = carve(P, NPS, STATIC, smem);
 
@@ -99,9 +94,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       const int r = a + ln.wrow;
       const bool on = !ln.idle && r < g.r_hi;
       uint32_t o[2][Rule::NP];
-      if (on) compute_row<Rule, STATIC, MODE>(P, tl, ln, g, sm, ps, r, o);
+      if (on) compute_row<Rule, STATIC, MODE>(P, tl, ln, g, sm, r, o);
       __syncthreads();
-      if (on) write_row<Rule, STATIC>(P, tl, ln, g, sm, ps, r, o);
+      if (on) write_row<Rule, STATIC>(P, tl, ln, g, sm, r, o);
       __syncthreads();
     }
     if ((P.record_mask >> s) & 1) {
@@ -109,7 +104,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       for (int k = 0; k < M::N_TERMS; ++k) cnt[k] = 0;
       if (!ln.idle)
         for (int r = P.T + ln.wrow; r < P.T + P.bh; r += P.NWR)
-          moment_row<Rule, STATIC>(P, tl, ln, sm, ps, s, r, cnt);
+          moment_row<Rule, STATIC>(P, tl, ln, sm, s, r, cnt);
       for (int k = 0; k < M::N_TERMS; ++k) {
         int v = cnt[k];
         for (int off = 16; off > 0; off >>= 1)
@@ -135,12 +130,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 // What a launch of one instantiation needs and gets; returns a
 // cudaError_t code.  info[]: resident blocks per SM, registers a thread,
 // local (spill) bytes a thread, dynamic shared bytes a block.
-template <class Rule, bool STATIC, int MODE, bool FIXED>
+template <class Rule, bool STATIC, int MODE>
 static int prepare(const Params& P, int* info) {
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
-  if (P.NWR == 0) return (int)cudaErrorInvalidValue;  // W > 64 NW words
   size_t smem = (size_t)smem_words(NPS, P.bh, P.bw, P.T, STATIC) * 4;
-  auto kern = fhp_step_kernel<Rule, STATIC, MODE, FIXED>;
+  auto kern = fhp_step_kernel<Rule, STATIC, MODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess || !info) return (int)e;
@@ -157,23 +151,16 @@ static int prepare(const Params& P, int* info) {
   return (int)e;
 }
 
-template <class Rule, bool STATIC, int MODE, bool FIXED>
-static int launch_as(const Params& P, cudaStream_t stream, int* info) {
-  int e = prepare<Rule, STATIC, MODE, FIXED>(P, info);
+template <class Rule, bool STATIC, int MODE>
+static int launch(const Params& P, cudaStream_t stream, int* info) {
+  int e = prepare<Rule, STATIC, MODE>(P, info);
   if (e || info) return e;
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
   size_t smem = (size_t)smem_words(NPS, P.bh, P.bw, P.T, STATIC) * 4;
   dim3 grid((P.Wd + P.bw - 1) / P.bw, (P.H + P.bh - 1) / P.bh, P.B);
-  fhp_step_kernel<Rule, STATIC, MODE, FIXED>
+  fhp_step_kernel<Rule, STATIC, MODE>
       <<<grid, dim3(32, NW), smem, stream>>>(P);
   return (int)cudaGetLastError();
-}
-
-template <class Rule, bool STATIC, int MODE>
-static int launch(const Params& P, cudaStream_t stream, int* info) {
-  if (P.PS == PS_FIXED)
-    return launch_as<Rule, STATIC, MODE, true>(P, stream, info);
-  return launch_as<Rule, STATIC, MODE, false>(P, stream, info);
 }
 
 // Static solid runs in periodic and extended mode only; PRE_RNG is a

@@ -24,8 +24,8 @@
 //
 // Shared memory: ONE buffer of NPS planes x R slots x WP words (R = bh +
 // 2T, W = bw + 2T, WP = W rounded up so 16-byte chunks stay aligned; the
-// planes PS_FIXED words apart when R x WP fits that, else R x WP), in
-// static-solid mode the solid tile, and the row table (R words).
+// planes PS = R x WP words apart), in static-solid mode the solid tile,
+// and the row table (R words).
 // Slot r, column c holds array row ty - T + r, word tx - T + c at load
 // (wrapped mod (H, Wd) in periodic mode, clamped into the array in
 // extended mode, kernel.py:540-556), at word r * WP + SH + c of its
@@ -78,10 +78,6 @@ enum Mode { PERIODIC = 0, EXTENDED = 1, PRE_RNG = 2 };
 
 static const int NW = 16;        // warps per block
 static const int THREADS = 32 * NW;
-// Words per plane of the tile buffer when R x WP fits them: a
-// compile-time plane stride makes every tap's address an immediate
-// offset from one register.
-static const int PS_FIXED = 56 * 64;
 
 // The majority of (a, ~b, c): one LOP3 (lookup table 0xB2).  Written as
 // the instruction, so that the compiler does not merge b's last xor into
@@ -150,17 +146,18 @@ static __host__ __device__ __forceinline__ int row_pitch(int bw, int T) {
   return (W + (((bw | T) & 3) ? 3 : 0) + 3) & ~3;
 }
 
-// Words per plane of the tile buffer: PS_FIXED where R x WP fits it.
-static __host__ __device__ __forceinline__ int plane_words(int bh, int bw,
-                                                           int T) {
-  int rwp = (bh + 2 * T) * row_pitch(bw, T);
-  return rwp <= PS_FIXED ? PS_FIXED : rwp;
+// The words of a tile row a block takes: a warp covers 64 words of a row
+// (two 32-word passes) and the NW warps one row with its apron, so a wider
+// tile runs as tiles of that width -- the same result, in more blocks.
+static __host__ __device__ __forceinline__ int tile_words(int bw, int T) {
+  return bw + 2 * T > 64 * NW ? 64 * NW - 2 * T : bw;
 }
 
 // Shared-memory words one block needs: the tile, the solid, the rows.
+// (``bw`` as tile_words gives it.)
 static __host__ __device__ __forceinline__ long smem_words(
     int nps, int bh, int bw, int T, bool with_solid) {
-  long ps = plane_words(bh, bw, T);
+  long ps = (long)(bh + 2 * T) * row_pitch(bw, T);
   return nps * ps + (with_solid ? ps : 0) + bh + 2 * T;
 }
 
@@ -183,7 +180,7 @@ static inline Params make_params(const void* in, void* out, const void* solid,
   P.H = H;
   P.Wd = Wd;
   P.bh = bh;
-  P.bw = bw;
+  P.bw = tile_words(bw, T);
   P.T = T;
   P.t0 = t0;
   P.y0 = y0;
@@ -203,11 +200,11 @@ static inline Params make_params(const void* in, void* out, const void* solid,
   uintptr_t bits = (uintptr_t)in | (uintptr_t)out | (uintptr_t)solid;
   P.vec = (Wd % 4 == 0) && (bits & 15) == 0;
   P.R = bh + 2 * T;
-  P.W = bw + 2 * T;
-  P.WP = row_pitch(bw, T);
-  P.PS = plane_words(bh, bw, T);
-  P.NM = (P.W + 63) / 64;              // each warp covers 64 words
-  P.NWR = P.NM <= NW ? NW / P.NM : 0;  // 0: the tile is too wide
+  P.W = P.bw + 2 * T;
+  P.WP = row_pitch(P.bw, T);
+  P.PS = P.R * P.WP;
+  P.NM = (P.W + 63) / 64;  // each warp covers 64 words
+  P.NWR = NW / P.NM;
   return P;
 }
 
@@ -381,12 +378,11 @@ static __host__ __device__ __forceinline__ Tile make_tile(const Params& P,
   return tl;
 }
 
-// Word (plane p, buffer slot r, column c) of a tile buffer whose planes
-// are ``ps`` words apart (P.PS, or the same as a constant).
+// Word (plane p, buffer slot r, column c) of a tile buffer.
 static __host__ __device__ __forceinline__ int at(const Params& P,
-                                                  const Tile& tl, int ps,
-                                                  int p, int r, int c) {
-  return p * ps + r * P.WP + tl.SH + c;
+                                                  const Tile& tl, int p,
+                                                  int r, int c) {
+  return p * P.PS + r * P.WP + tl.SH + c;
 }
 
 // Pointers of one block's shared memory.
@@ -417,7 +413,7 @@ static __host__ __device__ __forceinline__ void load_tile(
     for (int r = w; r < P.R; r += NW) {
       int gy = src_index<MODE>(tl.ty - P.T + r, P.H);
       const uint32_t* row = src + ((long)p * P.H + gy) * P.Wd;
-      uint32_t* d = dst + at(P, tl, P.PS, p, r, 0);
+      uint32_t* d = dst + at(P, tl, p, r, 0);
       for (int u = x; u < tl.lp.units; u += 32) {
         int c = tl.lp.col(u);
         if (tl.lp.chunk(u)) {
@@ -568,13 +564,13 @@ static __host__ __device__ __forceinline__ bool active(const StepGeom& g,
 template <class Rule, bool STATIC, int MODE>
 static __host__ __device__ __forceinline__ void compute_row(
     const Params& P, const Tile& tl, const Lane& ln, const StepGeom& g,
-    const Smem& sm, int ps, int r, uint32_t (*o)[Rule::NP]) {
+    const Smem& sm, int r, uint32_t (*o)[Rule::NP]) {
   Reader<STATIC, Rule::SOLID> rd;
-  rd.ps = ps;
+  rd.ps = P.PS;
   rd.rs = P.WP;
   uint32_t rrow = sm.rows[r];
   for (int k = 0; k < 3; ++k) rd.odd[k] = (int)(sm.rows[r - (k - 1)] & 1u);
-  const uint32_t* ctr = sm.buf + at(P, tl, ps, 0, r - g.s, 0);
+  const uint32_t* ctr = sm.buf + at(P, tl, 0, r - g.s, 0);
   const uint32_t* sol = sm.sol + r * P.WP + tl.SH;
 #ifdef __CUDACC__
 #pragma unroll
@@ -600,12 +596,12 @@ static __host__ __device__ __forceinline__ void compute_row(
 template <class Rule, bool STATIC>
 static __host__ __device__ __forceinline__ void write_row(
     const Params& P, const Tile& tl, const Lane& ln, const StepGeom& g,
-    const Smem& sm, int ps, int r, const uint32_t (*o)[Rule::NP]) {
+    const Smem& sm, int r, const uint32_t (*o)[Rule::NP]) {
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
-  uint32_t* dst = sm.buf + at(P, tl, ps, 0, r - g.s - 1, 0);
+  uint32_t* dst = sm.buf + at(P, tl, 0, r - g.s - 1, 0);
   for (int j = 0; j < 2; ++j) {
     if (!active(g, ln.c[j])) continue;
-    for (int p = 0; p < NPS; ++p) dst[p * ps + ln.c[j]] = o[j][p];
+    for (int p = 0; p < NPS; ++p) dst[p * P.PS + ln.c[j]] = o[j][p];
   }
 }
 
@@ -616,16 +612,16 @@ static __host__ __device__ __forceinline__ void write_row(
 // window: kernel.py:428-434).
 template <class Rule, bool STATIC>
 static __host__ __device__ __forceinline__ void moment_row(
-    const Params& P, const Tile& tl, const Lane& ln, const Smem& sm, int ps,
-    int s, int r, int* cnt) {
+    const Params& P, const Tile& tl, const Lane& ln, const Smem& sm, int s,
+    int r, int* cnt) {
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
   int gy = tl.ty - P.T + r;
   if (gy < P.r0 || gy >= P.r1) return;
-  const uint32_t* row = sm.buf + at(P, tl, ps, 0, r - s - 1, 0);
+  const uint32_t* row = sm.buf + at(P, tl, 0, r - s - 1, 0);
   for (int j = 0; j < 2; ++j) {
     if (!ln.mom[j]) continue;
     uint32_t p[Rule::NP];
-    for (int k = 0; k < NPS; ++k) p[k] = row[k * ps + ln.c[j]];
+    for (int k = 0; k < NPS; ++k) p[k] = row[k * P.PS + ln.c[j]];
     if constexpr (STATIC)
       Rule::terms_static(p, cnt);
     else
@@ -665,7 +661,7 @@ static __host__ __device__ __forceinline__ void store_tile(
     for (int y = w; y < P.bh && tl.ty + y < P.H; y += NW) {
       uint32_t* dst =
           P.out + (((long)tl.b * nps + p) * P.H + tl.ty + y) * P.Wd + tl.tx;
-      const uint32_t* src = buf + at(P, tl, P.PS, p, y, P.T);
+      const uint32_t* src = buf + at(P, tl, p, y, P.T);
       for (int u = x; u < sp.units; u += 32) {
         int c = sp.col(u);
         if (sp.chunk(u)) {

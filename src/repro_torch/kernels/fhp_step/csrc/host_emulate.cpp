@@ -5,7 +5,8 @@
 // reverse thread order, so a write that another thread's phase depends on
 // shows), then moments and the store -- with the block's moment counts
 // summed directly instead of through warp shuffles and atomics.  Also
-// exported: the copy plans and the Bernoulli word, for their own tests.
+// exported: the copy plans, the tile geometry and the Bernoulli word, for
+// their own tests.
 // Build with
 //   g++ -std=c++17 -O1 -shared -fPIC -o libfhp_host.so host_emulate.cpp
 #include <vector>
@@ -20,7 +21,6 @@ template <class Rule, bool STATIC, int MODE>
 int run_blocks(const Params& P) {
   typedef Moments<Rule, STATIC> M;
   const int NPS = STATIC ? Rule::NP - 1 : Rule::NP;
-  if (P.NWR == 0) return 1;  // W > MAX_W, as the card refuses
   int nbx = (P.Wd + P.bw - 1) / P.bw, nby = (P.H + P.bh - 1) / P.bh;
   std::vector<uint32_t> smem(smem_words(NPS, P.bh, P.bw, P.T, STATIC));
   std::vector<Lane> lanes(THREADS);
@@ -47,14 +47,13 @@ int run_blocks(const Params& P) {
             for (int i = 0; i < THREADS; ++i) {  // compute phase
               int r = a + lanes[i].wrow;
               if (!lanes[i].idle && r < g.r_hi)
-                compute_row<Rule, STATIC, MODE>(P, tl, lanes[i], g, sm, P.PS,
-                                                r, o[i]);
+                compute_row<Rule, STATIC, MODE>(P, tl, lanes[i], g, sm, r,
+                                                o[i]);
             }
             for (int i = THREADS - 1; i >= 0; --i) {  // write phase
               int r = a + lanes[i].wrow;
               if (!lanes[i].idle && r < g.r_hi)
-                write_row<Rule, STATIC>(P, tl, lanes[i], g, sm, P.PS, r,
-                                        o[i]);
+                write_row<Rule, STATIC>(P, tl, lanes[i], g, sm, r, o[i]);
             }
           }
           if ((P.record_mask >> s) & 1) {
@@ -63,7 +62,7 @@ int run_blocks(const Params& P) {
               const Lane& ln = lanes[i];
               if (ln.idle) continue;
               for (int r = P.T + ln.wrow; r < P.T + P.bh; r += P.NWR)
-                moment_row<Rule, STATIC>(P, tl, ln, sm, P.PS, s, r, cnt);
+                moment_row<Rule, STATIC>(P, tl, ln, sm, s, r, cnt);
             }
             int m[M::N_MOMENTS];
             M::combine(cnt, m);
@@ -149,6 +148,21 @@ extern "C" int fhp_plan_host(int store, int extended, int vec, int Wd,
     }
   }
   return pl.units;
+}
+
+// The tile geometry a launch of tile (bh, bw) at T with `nps` stack planes
+// (and the solid tile when `solid`) gets: out[0] the row pitch, out[1] the
+// words per plane, out[2] the dynamic shared bytes of a block, out[3] the
+// tile's words (bw, or the most a block covers).
+extern "C" void fhp_geometry_host(int nps, int bh, int bw, int T, int solid,
+                                  int* out) {
+  uint32_t dummy[4];
+  Params P = make_params(dummy, dummy, nullptr, nullptr, nullptr, nullptr, 1,
+                         bh, bw, bh, bw, T, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0);
+  out[0] = P.WP;
+  out[1] = P.PS;
+  out[2] = (int)(4 * smem_words(nps, P.bh, P.bw, T, solid != 0));
+  out[3] = P.bw;
 }
 
 // bernoulli_word at n (row, word) counters.

@@ -44,9 +44,14 @@ from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 LAUNCHES: collections.Counter = collections.Counter()
 
 SMEM_BYTES_PER_BLOCK = 232_448    # H100: 227 KB of shared memory per block
-MAX_TILE = (56, 64)               # pick_tile's tile with its apron
-PLANE_WORDS = MAX_TILE[0] * MAX_TILE[1]  # the kernel's PS_FIXED
-MAX_TILE_WORDS = 1024             # bw + 2T: 16 warps of 64 words a row
+# pick_tile's shared memory a block: two blocks share an SM's 228 KB (the
+# kernel's __launch_bounds__), each less the 1 KB the card reserves a
+# block and 256 B for the kernel's static shared memory.
+TILE_SMEM_BYTES = 233_472 // 2 - 1024 - 256
+MAX_TILE = 64                     # pick_tile's row with its apron, words
+# bw + 2T of a block: 16 warps of 64 words a row.  A wider tile runs as
+# tiles of this width (``tile_words`` in csrc/fhp_step.cuh), same result.
+MAX_TILE_WORDS = 1024
 MAX_STEPS_PER_LAUNCH = 8          # run_extended's default T
 _GRID_YZ_LIMIT = 65_535
 _RULE_ID = {name: i for i, name in enumerate(codegen.RULES)}
@@ -73,30 +78,24 @@ def rng_words(shape, t: int, *, p_force: float = 0.0, y0: int = 0,
     return chi, acc
 
 
-def row_pitch(bw: int, steps: int) -> int:
-    """Words per row of the kernel's tile buffer (``row_pitch`` in
-    ``csrc/fhp_step.cuh``): ``bw + 2T``, plus 3 where the tile origin can
-    sit off a 16-byte boundary, rounded up to a multiple of 4."""
-    w = bw + 2 * steps
-    return (w + (3 if (bw | steps) & 3 else 0) + 3) & ~3
-
-
 def smem_bytes(bh: int, bw: int, steps: int = 1, static_solid: bool = False,
                n_planes: int = 8) -> int:
-    """Dynamic shared memory of one block: one buffer of the ``(bh + 2T) x
-    (bw + 2T)`` tile (at ``row_pitch``; a plane of up to ``PLANE_WORDS``
-    words takes that many, the kernel's compile-time plane stride) for
-    every stack plane, the solid plane's tile in static-solid mode, and
-    one word per tile row (the kernel's table of RNG rows)."""
-    nps = n_planes - 1 if static_solid else n_planes
-    ps = max(PLANE_WORDS, (bh + 2 * steps) * row_pitch(bw, steps))
-    return 4 * (nps * ps + (ps if static_solid else 0) + bh + 2 * steps)
+    """Dynamic shared memory of one block (``smem_words`` in
+    ``csrc/fhp_step.cuh``): one buffer of the ``bh + 2T`` tile rows for
+    every stack plane, the solid plane's tile in static-solid mode (the
+    two make ``n_planes`` either way), and one word per tile row (the
+    kernel's table of RNG rows).  A row holds ``bw + 2T`` words (``bw``
+    at most ``MAX_TILE_WORDS - 2T``), plus 3 where the tile origin can
+    sit off a 16-byte boundary, rounded up to a multiple of 4."""
+    bw = min(bw, MAX_TILE_WORDS - 2 * steps)
+    w = bw + 2 * steps
+    pitch = (w + (3 if (bw | steps) & 3 else 0) + 3) & ~3
+    return 4 * (bh + 2 * steps) * (n_planes * pitch + 1)
 
 
 def _tile_ok(bh: int, bw: int, h: int, wd: int, steps: int,
              static_solid: bool, n_planes: int) -> bool:
     return (steps <= bh and (bw >= wd or steps <= bw)
-            and bw + 2 * steps <= MAX_TILE_WORDS
             and smem_bytes(bh, bw, steps, static_solid, n_planes)
             <= SMEM_BYTES_PER_BLOCK)
 
@@ -104,15 +103,14 @@ def _tile_ok(bh: int, bw: int, h: int, wd: int, steps: int,
 def pick_tile(h: int, wd: int, steps: int = 1, static_solid: bool = False,
               n_planes: int = 8) -> Tuple[int, int]:
     """``(block_rows, block_words)``: the most words whose row with its
-    apron fills whole warp rows of ``MAX_TILE[1]`` words (``bw + 2T`` a
-    multiple of it, with ``bw >= T``), and the most rows whose tile with
-    its apron fits one ``PLANE_WORDS`` plane (the kernel's compile-time
-    plane stride; rows halved until the tile fits the H100's shared
-    memory and admits the ``steps``-row apron), both clipped to the
-    lattice."""
-    span = MAX_TILE[1]
-    words = -(-3 * steps // span) * span - 2 * steps
-    rows = max(PLANE_WORDS // row_pitch(words, steps) - 2 * steps, steps)
+    apron fills whole warp rows of ``MAX_TILE`` words (``bw + 2T`` a
+    multiple of it, with ``bw >= T``), and the most rows whose tile fits
+    ``TILE_SMEM_BYTES`` (two blocks an SM), both clipped to the lattice;
+    rows are halved until the tile admits the ``steps``-row apron."""
+    words = -(-3 * steps // MAX_TILE) * MAX_TILE - 2 * steps
+    per_row = smem_bytes(1, words, steps, static_solid,
+                         n_planes) // (1 + 2 * steps)
+    rows = max(TILE_SMEM_BYTES // per_row - 2 * steps, steps)
     while rows >= 1:
         bh, bw = min(rows, h), min(words, wd)
         if _tile_ok(bh, bw, h, wd, steps, static_solid, n_planes):
@@ -209,9 +207,6 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
         raise ValueError(f"steps_per_launch={T} > block_rows={bh}")
     if bw < wd and T > bw:
         raise ValueError(f"steps_per_launch={T} > block_words={bw}")
-    if bw + 2 * T > MAX_TILE_WORDS:
-        raise ValueError(f"block_words={bw} + 2 x steps_per_launch={T} > "
-                         f"{MAX_TILE_WORDS} words per tile row")
     need = smem_bytes(bh, bw, T, static_solid, spec.n_planes)
     if need > SMEM_BYTES_PER_BLOCK:
         raise ValueError(f"tile ({bh}, {bw}) at T={T} needs {need} B of "

@@ -152,6 +152,8 @@ def _host_dll(cxx_lib):
                                        ctypes.c_int, ctypes.c_uint,
                                        ctypes.c_int, ctypes.c_void_p]
     dll.fhp_bernoulli_host.restype = None
+    dll.fhp_geometry_host.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    dll.fhp_geometry_host.restype = None
     return dll
 
 
@@ -442,18 +444,18 @@ def test_ptxas_report():
     text = "\n".join([
         "ptxas info    : 0 bytes gmem",
         "ptxas info    : Compiling entry function "
-        "'_ZN3fhp15fhp_step_kernelI9Rule_fhp2Lb1ELi1ELb1EEEvNS_6ParamsE' for "
+        "'_ZN3fhp15fhp_step_kernelI9Rule_fhp2Lb1ELi1EEEvNS_6ParamsE' for "
         "'sm_90a'",
         "ptxas info    : Function properties for _ZN3fhp15fhp_step_kernel",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 56 registers, 32 bytes smem, 408 bytes cmem[0]",
         "ptxas info    : Compiling entry function "
-        "'_ZN3fhp15fhp_step_kernelI8Rule_bmlLb0ELi2ELb0EEEvNS_6ParamsE' for "
+        "'_ZN3fhp15fhp_step_kernelI8Rule_bmlLb0ELi2EEEvNS_6ParamsE' for "
         "'sm_90a'",
         "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
         "ptxas info    : Used 64 registers, 16 bytes smem"])
     assert build.ptxas_report(text) == [
-        {"kernel": "fhp2 static extended, fixed", "registers": 56,
+        {"kernel": "fhp2 static extended", "registers": 56,
          "spill_stores": 0, "spill_loads": 0},
         {"kernel": "bml precomputed_rng", "registers": 64,
          "spill_stores": 8, "spill_loads": 4}]
@@ -524,33 +526,75 @@ def test_moment_headroom_refused_before_dispatch():
 
 
 def test_pick_tile_and_shared_memory():
-    # One tile buffer (no ping-pong buffer) and a word per tile row; a
-    # plane of up to 56 x 64 words takes that many (a compile-time stride).
-    assert ops.smem_bytes(32, 32, 8) == 8 * 3584 * 4 + 48 * 4
+    # One tile buffer (no ping-pong buffer) at its own size and a word per
+    # tile row.
+    assert ops.smem_bytes(32, 32, 8) == 8 * 48 * 48 * 4 + 48 * 4
     assert ops.smem_bytes(40, 48, 8, True) == (7 + 1) * 56 * 64 * 4 + 56 * 4
     assert ops.smem_bytes(64, 64, 8) == 8 * 80 * 80 * 4 + 80 * 4
-    # Tiles whose origin can sit off a 16-byte boundary pad the row pitch.
-    assert ops.row_pitch(32, 8) == 48 and ops.row_pitch(62, 1) == 68
+    assert ops.smem_bytes(5, 1, 2, n_planes=2) == 2 * 9 * 8 * 4 + 9 * 4
+    # Tiles whose origin can sit off a 16-byte boundary pad the row pitch
+    # (62 + 2 words to 68, 30 + 4 to 40).
     assert ops.smem_bytes(64, 62, 1) == 8 * 66 * 68 * 4 + 66 * 4
+    assert ops.smem_bytes(8, 30, 2) == 8 * 12 * 40 * 4 + 12 * 4
     # A tile row with its apron fills one warp's two 32-word passes, and
-    # the tile with its apron one 56 x 64-word plane.
+    # the most rows fit two blocks an SM.
     assert ops.pick_tile(4096, 1024, 8) == (40, 48)
     assert ops.pick_tile(4096, 1024, 8, static_solid=True) == (40, 48)
     assert ops.pick_tile(4096, 1024, 1) == (50, 62)
+    assert ops.pick_tile(4096, 1024, 1, n_planes=2) == (208, 62)
     assert ops.pick_tile(2064, 514, 4) == (48, 56)
     assert ops.pick_tile(64, 1024, 16) == (24, 32)
     assert ops.pick_tile(16, 8, 8) == (16, 8)
-    assert ops.pick_tile(70, 31, 1, n_planes=2) == (50, 31)
-    for h, wd, T, sp, n in ((4096, 1024, 8, False, 8), (256, 125, 4, True, 8),
-                            (64, 3, 2, False, 2)):
+    assert ops.pick_tile(70, 31, 1, n_planes=2) == (70, 31)
+    for h, wd, T, sp, n in ((4096, 1024, 8, False, 8), (4096, 1024, 1, False, 8),
+                            (4096, 1024, 2, True, 8), (4096, 1024, 1, False, 2),
+                            (256, 125, 4, True, 8), (64, 3, 2, False, 2)):
         bh, bw = ops.pick_tile(h, wd, T, sp, n)
-        assert ops.smem_bytes(bh, bw, T, sp, n) <= ops.SMEM_BYTES_PER_BLOCK
+        assert ops.smem_bytes(bh, bw, T, sp, n) <= ops.TILE_SMEM_BYTES
+        assert bh == h or ops.smem_bytes(bh + 1, bw, T, sp,
+                                         n) > ops.TILE_SMEM_BYTES
+        assert (bw + 2 * T) % ops.MAX_TILE == 0 or bw == wd
         assert T <= bh and (bw >= wd or T <= bw)
     with pytest.raises(ValueError, match="no valid tile"):
         ops.pick_tile(4, 64, 8)
-    with pytest.raises(ValueError, match="words per tile row"):
-        ops.fhp_step_cuda(torch.zeros((1, 2, 8, 1100), dtype=torch.int32), 0,
-                          variant="bml", block_rows=8, block_words=1100)
+    # A tile wider than a block covers runs as tiles of the widest width.
+    assert ops.smem_bytes(8, 1100, 1, n_planes=2) == ops.smem_bytes(
+        8, ops.MAX_TILE_WORDS - 2, 1, n_planes=2)
+
+
+def test_tile_geometry_matches_kernel(host_kernel):
+    # ops.smem_bytes and MAX_TILE_WORDS against the kernel's own geometry
+    # (make_params and smem_words in csrc/fhp_step.cuh, built for the host).
+    out = (ctypes.c_int * 4)()
+    for bh, bw, T, n, solid in itertools.product(
+            (1, 7, 40), (1, 3, 30, 48, 62, 125, 1020, 1023, 1208, 4840),
+            (1, 2, 3, 8), (2, 7, 8), (False, True)):
+        host_kernel.fhp_geometry_host(n - solid, bh, bw, T, solid, out)
+        assert out[1] == (bh + 2 * T) * out[0] and out[0] % 4 == 0
+        assert out[2] == ops.smem_bytes(bh, bw, T, solid, n), (bh, bw, T)
+        assert out[3] == min(bw, ops.MAX_TILE_WORDS - 2 * T), (bw, T)
+
+
+# The widest tile rows: a block covers up to MAX_TILE_WORDS words a row with
+# the apron, and a wider tile runs as tiles of that width.  The widest
+# one-row tiles the kernel took before the row-mapped redesign (bml rows of
+# 4840 words and 8-plane rows of 1208 words at T = 1, as much as its two
+# buffers fitted in shared memory) still run, bit-equal.
+@pytest.mark.parametrize("variant,bw", [("bml", 1022), ("fhp2", 1022),
+                                        ("bml", 4840), ("fhp2", 1208)])
+def test_widest_tile_row(host_kernel, variant, bw):
+    spec = rulespec.get_rule(variant)
+    h, wd = 4, bw + 5
+    p_force = 0.0 if variant == "bml" else 0.05
+    w = torch.from_numpy(words(bw, (1, spec.n_planes, h, wd)).view(np.int32))
+    kw = dict(p_force=p_force, y0=3, xw0=1, variant=variant,
+              record_steps=(0,))
+    want, wm = fhp_step_ref(w, 2, **kw)
+    got, gm = ops.fhp_step_cuda(w, 2, block_rows=1, block_words=bw, **kw)
+    assert torch.equal(got, want) and torch.equal(gm, wm)
+    got, gm = _host_step(host_kernel, w, 2, variant, 1, (1, bw), p_force, 3,
+                         1, None, (0,))
+    assert torch.equal(got, want) and torch.equal(gm, wm)
 
 
 # ---------------------------------------------------------------------------
@@ -622,11 +666,11 @@ def test_loop_bodies_of_built_kernel():
             "@P0 BRA 0x20 ;",                            # 0x70
             "@P1 BRA 0x10 ;",                            # 0x80
             "EXIT ;"]
-    lines = ["\t\tFunction : _ZN3fhp15fhp_step_kernelI9Rule_fhp2Lb0ELi0ELb1E"]
+    lines = ["\t\tFunction : _ZN3fhp15fhp_step_kernelI9Rule_fhp2Lb0ELi0E"]
     lines += [f"        /*{16 * i:04x}*/   {insn}   /* 0x0 */"
               for i, insn in enumerate(body)]
     lines += ["\t\tFunction : other", "        /*0000*/   BRA 0x0 ;"]
-    loops = opcount.loop_bodies("\n".join(lines), "fhp2Lb0ELi0ELb1E")
+    loops = opcount.loop_bodies("\n".join(lines), "fhp2Lb0ELi0E")
     assert [(b["start"], b["end"], b["barriers"]) for b in loops] == [
         (0x10, 0x80, 2), (0x20, 0x70, 2)]
     assert loops[1] == {"alu": 1, "fma": 1, "popc": 0, "other": 0,
