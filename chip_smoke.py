@@ -57,12 +57,40 @@ no result line):
    piece of ``run_extended_split``, and a precomputed-RNG launch against
    a T = 1 launch, each with its bound and its plain version's time, and
    each held bit-equal to its plain version on the same inputs (extended
-   launches on their validity window, with their moments) first.
+   launches on their validity window, with their moments) first;
+8. the serve path (``serve.CAServeEngine``, with telemetry on):
+   a. full width, clean: 4 slots, depth 8, T = 8, audits every round,
+      checkpoints every 4 rounds (keep 2) in a temporary directory; 4
+      cylinder jobs (seeds 0-3) and 4 bml_city jobs (seeds 0-3) of 64
+      steps with a frame every 16, then ``drain()``.  Every job done; the
+      cylinder results bit-equal to phase 3's lanes, the bml results to
+      ``make_ensemble_run(None, 64, variant="bml")`` of the same lanes,
+      the bml group's first round (planes and moments) to
+      ``fhp_step_ref``; every audit read fused moments; no detection; the
+      kernel launched every round of each group.  Prints the round walls,
+      each ``serve.*`` span's total, admission (lattice set-up) per job,
+      checkpoint seconds and bytes, jobs/s and site updates/s against
+      phase 3's, and ``_modeled_round_s()`` (which must not exceed the
+      median round);
+   b. faults at full width: 2 slots, seeds 0-1, checkpoints every 2
+      rounds; a bitflip on the fhp2 group at round 2, a nan_shard on the
+      bml group at round 3, a torn round-4 checkpoint and a killed_step at
+      round 6, then ``CAServeEngine.resume``.  Both corruptions detected
+      and rolled back, the torn checkpoint refused by
+      ``verify_checkpoint``, every result bit-equal to 8a's;
+   c. the engine on a 2 x 2 mesh of four slots on the card against the
+      single-device engine, 1024 x 8192 lattices, fhp3 (cylinder) and bml
+      jobs, 32 steps, with a bitflip rolled back on the mesh (checkpoint
+      restored onto the mesh, invariants recomputed on the shards):
+      results and frames bit-equal, the mesh engine through the kernel's
+      extended-shard mode only.
 
 Every entry's ``max_abs_err`` comes from its timed launch held against the
 plain version.
 
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
+The K1/K3/K4 entries add ``launches_serve`` (phase 8a's launches) and the
+K5 entry ``launches_serve_mesh`` (phase 8c's mesh engine).
 """
 import concurrent.futures
 import contextlib
@@ -71,6 +99,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -90,6 +119,9 @@ DEPTH = 8
 # Tile shapes (rows x words) timed at T = 8 in phase 4.
 TILES = ((32, 32), (48, 32), (64, 32), (64, 64), (32, 48), (40, 48),
          (64, 48), (32, 112))
+# Phase 8: the serve path.
+SERVE_FRAME_EVERY, SERVE_CKPT_EVERY = 16, 4
+SERVE_MESH_HW, SERVE_MESH_STEPS = (1024, 8192), 32
 SOURCE = "src/repro_torch/kernels/fhp_step/csrc/fhp_step.cu"
 REPLACES = "src/repro/kernels/fhp_step/kernel.py:330"
 
@@ -505,6 +537,253 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     ]
 
 
+def _equal_words(label, got, want) -> None:
+    """Raise unless host uint32 words ``got`` equal ``want``."""
+    import numpy as np
+    if got is None or got.shape != want.shape:
+        raise AssertionError(f"{label}: result {None if got is None else got.shape}"
+                             f", want {want.shape}")
+    if not np.array_equal(got, want):
+        where = tuple(int(i) for i in np.argwhere(got != want)[0])
+        raise AssertionError(f"{label}: differs first at {where}")
+
+
+def _serve_jobs(scenario_seeds, steps, frame_every, overrides=None):
+    """One ``SimJob`` per ``(scenario, seed)``, with ``overrides[scenario]``
+    passed to the scenario."""
+    from repro_torch.serve import SimJob
+    return [SimJob(rid=rid, scenario=name, steps=steps,
+                   frame_every=frame_every,
+                   overrides=dict((overrides or {}).get(name, {}), seed=seed))
+            for rid, (name, seed) in enumerate(scenario_seeds)]
+
+
+def _serve_path(dev, card, out, main_s):
+    """Phase 8: the serve engine at full width (clean, then with faults)
+    and on a 2 x 2 mesh.  Returns the launches by mode of 8a's and 8c's
+    mesh engine runs."""
+    import numpy as np
+
+    from repro_torch import scenarios, telemetry
+    from repro_torch.checkpoint import store
+    from repro_torch.core import carry, distributed
+    from repro_torch.kernels.fhp_step import check, ref
+    from repro_torch.serve import (DONE, CAServeEngine, Fault, FaultInjector,
+                                   SimulatedCrash)
+
+    # -- 8a. full width, clean ------------------------------------------------
+    t = time.perf_counter()
+    bml0 = torch.stack([
+        scenarios.get("bml_city", height=HEIGHT, width=WIDTH,
+                      seed=s).initial_planes(device=dev)
+        for s in range(LANES)])
+    bml_run, _ = distributed.make_ensemble_run(None, STEPS, variant="bml",
+                                               steps_per_launch=T_MAIN)
+    want = {("cylinder", s): w
+            for s, w in enumerate(carry.planes_to_reference(out))}
+    want.update({("bml_city", s): w for s, w in enumerate(
+        carry.planes_to_reference(bml_run(bml0, 0)))})
+    first_bml = ref.fhp_step_ref(bml0, 0, variant="bml",
+                                 steps_per_launch=DEPTH,
+                                 record_steps=(DEPTH - 1,))
+    del bml0
+    print(f"[serve] reference lanes: {LANES} bml_city lanes built and run "
+          f"{STEPS} steps in {time.perf_counter() - t:.2f} s")
+
+    seeds = [("cylinder", s) for s in range(LANES)] + \
+            [("bml_city", s) for s in range(LANES)]
+    sites = len(seeds) * HEIGHT * WIDTH * STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        tel = telemetry.Telemetry(enabled=True)
+        eng = CAServeEngine(height=HEIGHT, width=WIDTH, slots=LANES,
+                            depth=DEPTH, steps_per_launch=T_MAIN,
+                            device=dev, audit_every=1, ckpt_dir=d,
+                            ckpt_every=SERVE_CKPT_EVERY, keep=2,
+                            telemetry=tel)
+        jobs = _serve_jobs(seeds, STEPS, SERVE_FRAME_EVERY)
+        for job in jobs:
+            eng.submit(job)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t = time.perf_counter()
+        eng.tick()      # the first round admits (builds) every lattice
+        g = eng.groups["bml|0.0"]
+        got = (g.state, torch.from_numpy(g.last_moments).to(dev))
+        _held("serve: bml group's first round", got,
+              (first_bml[0], first_bml[1][:, 0]))
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, modes = _counts()
+        ckpt_step = store.latest_step(d)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(
+            store.step_dir(d, ckpt_step), f))
+            for f in os.listdir(store.step_dir(d, ckpt_step)))
+    del first_bml, got
+    summary = tel.summary()
+    rounds = eng.stats["rounds"]
+    if [j.status for j in jobs] != [DONE] * len(jobs):
+        raise AssertionError(f"serve: jobs {[j.status for j in jobs]}")
+    results = {}
+    for job, key in zip(jobs, seeds):
+        _equal_words(f"serve job {job.rid} {key}", job.result, want[key])
+        results[key] = job.result
+    del want
+    counters = summary["counters"]
+    if counters.get("serve.audit.recomputed") or not counters.get(
+            "serve.audit.fused"):
+        raise AssertionError(f"serve: audits {counters}")
+    if eng.detections:
+        raise AssertionError(f"serve: detections {eng.detections}")
+    if launches != 2 * rounds or modes.get("periodic") != 2 * rounds:
+        raise AssertionError(f"serve: {rounds} rounds of two groups made "
+                             f"launches {modes}")
+    walls = sorted(eng._round_walls)
+    med = statistics.median(walls)
+    model = eng._modeled_round_s()
+    print(f"[serve] {card} | {len(jobs)} jobs ({LANES} cylinder fhp2 + "
+          f"{LANES} bml_city) on {HEIGHT} x {WIDTH}, {STEPS} steps, depth "
+          f"{DEPTH}, T={T_MAIN}: all done, results bit-equal to phase 3's "
+          f"lanes and the bml ensemble run, first bml round bit-equal to "
+          f"fhp_step_ref; {rounds} rounds, launches by mode {modes}; "
+          f"{int(counters['serve.audit.fused'])} fused audits, 0 "
+          f"recomputed, 0 detections")
+    print(f"[serve] {card} | round wall: median {med:.4f} s, least "
+          f"{walls[0]:.4f}, most {walls[-1]:.4f} ({len(walls)} rounds; the "
+          f"first admits every job); in order "
+          f"{[round(x, 4) for x in eng._round_walls]} s")
+    for name, st in sorted(summary["spans"].items()):
+        print(f"[serve] {card} | span {name}: {st['count']} x, total "
+              f"{st['total_s']:.4f} s, median {st['p50_s']:.4f}, most "
+              f"{st['max_s']:.4f}")
+    spans = summary["spans"]
+    ck = spans["serve.checkpoint"]
+    print(f"[serve] {card} | admission (lattice set-up) "
+          f"{spans['serve.admit']['total_s'] / len(jobs):.2f} s per job; "
+          f"checkpoints {ck['count']} x, {ck['total_s'] / ck['count']:.3f} "
+          f"s and {ckpt_bytes} bytes each")
+    steady = sum(eng._round_walls[1:])
+    print(f"[serve] {card} | drain wall {wall:.2f} s: {len(jobs) / wall:.4f} "
+          f"jobs/s, {sites / wall:.4e} site-updates/s; rounds after the "
+          f"first {steady:.4f} s, "
+          f"{sites * (rounds - 1) / rounds / steady:.4e} site-updates/s; "
+          f"phase 3's main path {LANES * HEIGHT * WIDTH * STEPS / main_s:.4e}")
+    print(f"[serve] {card} | modeled round (H100 datasheet rates) "
+          f"{model:.4e} s against the median round {med:.4f} s")
+    if not 0 < model <= med:
+        raise AssertionError(f"serve: modeled round {model} s exceeds the "
+                             f"median round {med} s")
+    serve_modes = modes
+
+    # -- 8b. faults at full width ---------------------------------------------
+    seeds = [("cylinder", s) for s in range(2)] + \
+            [("bml_city", s) for s in range(2)]
+    inj = FaultInjector([
+        Fault(kind="bitflip", round=2, rule="fhp2", lane=0, plane=3,
+              bits=1, seed=21),
+        Fault(kind="nan_shard", round=3, rule="bml", lane=1, plane=0,
+              rows=2, seed=22),
+        Fault(kind="torn_checkpoint", round=4, seed=23),
+        Fault(kind="killed_step", round=6, seed=24)])
+    kw = dict(steps_per_launch=T_MAIN, device=dev, audit_every=1,
+              ckpt_every=2, keep=2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as d:
+        tel = telemetry.Telemetry(enabled=True)
+        eng = CAServeEngine(height=HEIGHT, width=WIDTH, slots=2, depth=DEPTH,
+                            ckpt_dir=d, injector=inj, telemetry=tel, **kw)
+        jobs = _serve_jobs(seeds, STEPS, SERVE_FRAME_EVERY)
+        for job in jobs:
+            eng.submit(job)
+        _reset_counts()
+        t = time.perf_counter()
+        try:
+            eng.drain()
+            raise AssertionError("serve faults: the killed_step did not fire")
+        except SimulatedCrash:
+            pass
+        crash_round, stats = eng.round, dict(eng.stats)
+        try:
+            store.verify_checkpoint(d, 4)
+            raise AssertionError("serve faults: the torn round-4 checkpoint "
+                                 "verifies")
+        except store.CheckpointError as e:
+            torn = type(e).__name__
+        t_resume = time.perf_counter()
+        eng2 = CAServeEngine.resume(d, injector=inj, telemetry=tel, **kw)
+        resume_s = time.perf_counter() - t_resume
+        resumed_at = eng2.round
+        done = eng2.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches, fault_modes = _counts()
+    rules = sorted(v["rule"] for v in eng.detections)
+    if rules != ["bml", "fhp2"] or len(inj.corruption_events()) != 2:
+        raise AssertionError(f"serve faults: detections {eng.detections}, "
+                             f"corruptions {inj.corruption_events()}")
+    if stats["rollbacks"] != 2 or not launches:
+        raise AssertionError(f"serve faults: stats {stats}, launches "
+                             f"{fault_modes}")
+    if sorted(j.rid for j in done) != list(range(len(seeds))):
+        raise AssertionError(f"serve faults: done {[j.rid for j in done]}")
+    for job, key in zip(sorted(done, key=lambda j: j.rid), seeds):
+        _equal_words(f"serve faults job {job.rid} {key}", job.result,
+                     results[key])
+    print(f"[serve] {card} | faults, 2 slots, seeds 0-1: events "
+          f"{[(e.kind, e.round, e.rule) for e in inj.events]}; detections "
+          f"{[(v['round'], v['rule'], sorted(v['violations'])) for v in eng.detections]}; "
+          f"rollbacks {[(r['detected_round'], r['restored_round'], round(r['restore_s'], 3)) for r in stats['recovery']]} "
+          f"(detected, restored, restore s); crash at round {crash_round}, "
+          f"round-4 checkpoint refused ({torn}), resumed at round "
+          f"{resumed_at} in {resume_s:.2f} s; every result bit-equal to "
+          f"8a's; launches by mode {fault_modes}; {wall:.2f} s")
+    del results
+
+    # -- 8c. the engine on a 2 x 2 mesh ---------------------------------------
+    h, w = SERVE_MESH_HW
+    seeds = [("cylinder", s) for s in range(2)] + \
+            [("bml_city", s) for s in range(2)]
+    variant = {"cylinder": {"variant": "fhp3"}}
+    mesh = distributed.make_mesh(*MESH, devices=dev)
+    runs = {}
+    for label, mesh_kw in (("single device", {}), ("mesh", {"mesh": mesh})):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+            inj = (FaultInjector([Fault(kind="bitflip", round=2,
+                                        rule="fhp3", lane=0, plane=2,
+                                        bits=1, seed=31)])
+                   if mesh_kw else None)
+            eng = CAServeEngine(height=h, width=w, slots=2, depth=DEPTH,
+                                steps_per_launch=T_MAIN, device=dev,
+                                ckpt_dir=d, ckpt_every=1, injector=inj,
+                                **mesh_kw)
+            jobs = _serve_jobs(seeds, SERVE_MESH_STEPS, SERVE_FRAME_EVERY,
+                               variant)
+            for job in jobs:
+                eng.submit(job)
+            torch.cuda.synchronize()
+            _reset_counts()
+            eng.drain()
+            torch.cuda.synchronize()
+            runs[label] = (eng, jobs, _counts()[1])
+    (single, sjobs, smodes), (meng, mjobs, mmodes) = runs.values()
+    if not smodes.get("periodic") or not mmodes.get("extended") or \
+            mmodes.get("periodic"):
+        raise AssertionError(f"serve mesh: launches {smodes}, {mmodes}")
+    if len(meng.detections) != 1 or meng.stats["rollbacks"] != 1:
+        raise AssertionError(f"serve mesh: detections {meng.detections}")
+    for a, b in zip(sjobs, mjobs):
+        if a.status != DONE or b.status != DONE:
+            raise AssertionError(f"serve mesh: {a.status}, {b.status}")
+        _equal_words(f"serve mesh job {a.rid}", b.result, a.result)
+        if a.frames != b.frames or not a.frames:
+            raise AssertionError(f"serve mesh job {a.rid}: frames differ")
+    print(f"[serve] mesh {mesh} of slots on {dev}, {h} x {w}, fhp3 + bml, "
+          f"{SERVE_MESH_STEPS} steps: results and frames bit-equal to the "
+          f"single-device engine; one bitflip detected ({meng.detections[0]['rule']}) "
+          f"and rolled back onto the mesh; launches by mode {mmodes} (single "
+          f"device {smodes})")
+    return serve_modes, mmodes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -724,14 +1003,20 @@ def main() -> int:
     _extended_sweeps(dev)
     sharded = _sharded_path(dev, planes, out, mom, kp, main_s, card, counted,
                             results["T=1"])
+    # -- 8. this slice: the serve path ----------------------------------------
+    serve_modes, mesh_modes = _serve_path(dev, card, out, main_s)
+    sharded[0]["launches_serve_mesh"] = mesh_modes["extended"]
 
     entries = [
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],
-               results["T=1"], card),
+               results["T=1"], card,
+               launches_serve=serve_modes["periodic"]),
         _entry("fhp_step K3 2-D tiles", "tiles", main_modes["periodic"],
-               results[f"T={T_MAIN}"], card),
+               results[f"T={T_MAIN}"], card,
+               launches_serve=serve_modes["periodic"]),
         _entry("fhp_step K4 fused moments", "moments", main_modes["moments"],
-               results[f"T={T_MAIN}"], card),
+               results[f"T={T_MAIN}"], card,
+               launches_serve=serve_modes["moments"]),
         _entry("fhp_step K6 static solid, periodic", "static_solid",
                twin_modes["static_solid"],
                results[f"T={T_MAIN} static-solid"], card),

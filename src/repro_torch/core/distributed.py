@@ -161,6 +161,13 @@ class ShardedPlanes:
     sharding: LatticeSharding
     tiles: Grid
 
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """The whole lattice's shape."""
+        t = self.tiles[0][0]
+        return tuple(t.shape[:-2]) + (t.shape[-2] * self.sharding.ny,
+                                      t.shape[-1] * self.sharding.nx)
+
     def map(self, fn: Callable, *others: "ShardedPlanes") -> "ShardedPlanes":
         """``fn`` applied to every shard (and the same shard of each of
         ``others``)."""
@@ -173,6 +180,26 @@ class ShardedPlanes:
         dev = device or self.tiles[0][0].device
         return torch.cat([torch.cat([t.to(dev) for t in row], dim=-1)
                           for row in self.tiles], dim=-2)
+
+    def read_lane(self, lane: int, device=None) -> torch.Tensor:
+        """Ensemble lane ``lane`` of a batched stack, whole, on ``device``
+        (default: shard (0, 0)'s)."""
+        dev = device or self.tiles[0][0].device
+        return torch.cat([torch.cat([t[lane].to(dev) for t in row], dim=-1)
+                          for row in self.tiles], dim=-2)
+
+    def write_lane(self, lane: int, planes) -> None:
+        """Overwrite ensemble lane ``lane`` of every shard in place with
+        its part of the whole ``(P, H, Wd)`` lattice ``planes`` (a
+        tensor, or a number every word takes)."""
+        hl, wdl = self.tiles[0][0].shape[-2:]
+        for iy, row in enumerate(self.tiles):
+            for ix, t in enumerate(row):
+                if isinstance(planes, torch.Tensor):
+                    t[lane] = planes[..., iy * hl:(iy + 1) * hl,
+                                     ix * wdl:(ix + 1) * wdl].to(t.device)
+                else:
+                    t[lane] = planes
 
 
 def _ring(n: int, up: bool):

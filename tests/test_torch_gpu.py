@@ -128,3 +128,38 @@ def test_compiled_word_step_is_counted(cuda):
     assert c["step"]["alu"] > 50 and c["step"]["fma"] > 0
     assert c["terms"]["popc"] == len(rulespec.moment_spec(
         rulespec.get_rule("fhp2")).terms)
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["single", "mesh"])
+def test_serve_engine_on_card_matches_cpu(cuda, mesh, tmp_path):
+    # The serve engine with its lanes on the card (single device, or a
+    # 2 x 2 mesh of slots on it) against the same engine on the CPU, a
+    # bitflip rolled back in both: equal results, frames and detections.
+    from repro_torch.serve import CAServeEngine, Fault, FaultInjector, SimJob
+
+    def serve(device, d):
+        kw = {}
+        if mesh:
+            kw["mesh"] = distributed.make_mesh((2, 2), ("data", "model"),
+                                               device)
+        eng = CAServeEngine(
+            height=64, width=512, slots=2, depth=4, steps_per_launch=4,
+            device=device, ckpt_dir=str(tmp_path / d), ckpt_every=1,
+            injector=FaultInjector([Fault(kind="bitflip", round=2,
+                                          rule="fhp3", bits=3, seed=1)]),
+            **kw)
+        for rid in range(3):
+            sc, ov = (("bml_city", {}) if rid == 1
+                      else ("cylinder", {"variant": "fhp3"}))
+            eng.submit(SimJob(rid=rid, scenario=sc, steps=16, frame_every=8,
+                              overrides=dict(ov, seed=rid)))
+        ops.LAUNCHES.clear()
+        eng.drain()
+        return eng, ops.launches_total()
+
+    card, launches = serve(cuda, "card")
+    host, _ = serve(torch.device("cpu"), "cpu")
+    assert launches > 0 and card.detections == host.detections != []
+    for rid, job in host.jobs.items():
+        assert (card.jobs[rid].result == job.result).all(), rid
+        assert card.jobs[rid].frames == job.frames, rid
