@@ -37,7 +37,13 @@ no result line):
    to the launch above), a band wider than a block covers (bit-equal at
    T = 1), the per-step time at T in {1, 2, 4, 8}, and the
    main tile's launch time at those T fitted against the word-steps it
-   issues (what a launch costs besides its steps: loads, stores);
+   issues (what a launch costs besides its steps: loads, stores), the cost
+   model's compute weight re-derived from that fit, and
+   ``ops.autotune_launch``'s single-device pick for this lattice beside
+   the measured sweeps: each timed (tile, T)'s modeled cost against the
+   main tile's next to its measured ms a step against the main tile's
+   (the pick timed too, held bit-equal to the plain version first, when
+   the sweeps did not time it);
 5. extended and K2 parity: the kernel's extended-shard mode through
    ``ops.run_extended`` (y0 = -T, xw0 = -1, global extents larger than the
    array; validity window and moments) and its precomputed-RNG mode
@@ -45,19 +51,35 @@ no result line):
    lattices;
 6. the sharded path: phase 3's state through ``make_ensemble_run`` on a
    2 x 2 ("data", "model") mesh of four slots on the one card (depth 8,
-   T = 8, moments every 8), with and without ``overlap``, bit-equal to
-   phase 3's planes and moments, each then timed ``MAIN_REPEATS`` times; ``make_run(static_solid=True)`` bit-equal
-   to ``run_cuda`` of the same stack; and the precomputed-RNG path
+   T = 8, moments every 8), with and without ``overlap`` (1 and 5
+   extended launches a shard a round; the overlapped round's interior
+   launches on a side stream), bit-equal to phase 3's planes and moments,
+   the overlapped run twice more from the same placed state, each equal,
+   and each path then timed ``MAIN_REPEATS`` times;
+   ``make_run(static_solid=True)`` bit-equal to ``run_cuda`` of the same
+   stack; and the precomputed-RNG path
    (``run_cuda(rng_in_kernel=False)``, 8 one-step launches) bit-equal to
    phase 3's first launch.  Every launch counter is set to 0 before each
    path and read after it;
 7. times of the sharded path: wall time and site updates per second
-   against phase 3's, the exchange and kernel time of one round, the
-   extended launch (and its static-solid twin) at the shard shape, each
-   piece of ``run_extended_split``, and a precomputed-RNG launch against
-   a T = 1 launch, each with its bound and its plain version's time, and
-   each held bit-equal to its plain version on the same inputs (extended
-   launches on their validity window, with their moments) first;
+   against phase 3's; the parts of a round each alone on one stream (the
+   serial exchange and launches; the boundary-slice exchange, the
+   interior and the boundary launches); one overlapped and one serial
+   round of the stepper with CUDA events on both streams (the interior
+   launches on the side stream, the boundary-slice exchange, the boundary
+   launches and the composition on the current one), how long the
+   interior and the exchange ran at the same time, and both rounds'
+   walls; ``measured_exchange_latency()`` and the branch it took;
+   ``ops.autotune_launch``'s sharded pick for the shard (depth <= 16)
+   with ``sharded_launch_cost`` of it and of the overlapped and serial
+   points above beside their measured runs, the pick run once through
+   ``make_ensemble_run`` (bit-equal to phase 3) and timed when its depth
+   divides the steps; then the extended launch (and its static-solid
+   twin) at the shard shape, each piece of ``run_extended_split``, and a
+   precomputed-RNG launch against a T = 1 launch, each with its bound and
+   its plain version's time, and each held bit-equal to its plain version
+   on the same inputs (extended launches on their validity window, with
+   their moments) first;
 8. the serve path (``serve.CAServeEngine``, with telemetry on):
    a. full width, clean: 4 slots, depth 8, T = 8, audits every round,
       checkpoints every 4 rounds (keep 2) in a temporary directory; 4
@@ -90,7 +112,10 @@ plain version.
 
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
 The K1/K3/K4 entries add ``launches_serve`` (phase 8a's launches) and the
-K5 entry ``launches_serve_mesh`` (phase 8c's mesh engine).
+K5 entry ``launches_overlap`` (phase 6's overlapped run),
+``launches_serve_mesh`` (phase 8c's mesh engine), ``split_piece_ms``
+(each piece of the split round) and ``overlap_round`` (phase 7's
+timeline, ms).
 """
 import concurrent.futures
 import contextlib
@@ -212,26 +237,26 @@ def _time_ms(fn, reps, warmup=2):
 
 
 @contextlib.contextmanager
-def _launch_events(store):
-    """While open, every kernel launch appends (start, end) CUDA events
-    recorded around it to ``store`` (the launch counts are untouched)."""
-    from repro_torch.kernels.fhp_step import ops
-    inner = ops._launch
+def _marked(module, name, marks):
+    """While open, each call of ``module.name`` appends ``(name, stream,
+    start, end)`` to ``marks``: CUDA events recorded around the call on
+    the stream current at the call."""
+    inner = getattr(module, name)
 
-    def timed(*args):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = inner(*args)
-        ev[1].record()
-        store.append(ev)
-        return out
+    def wrapped(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = inner(*args, **kw)
+        end.record()
+        marks.append((name, torch.cuda.current_stream(), start, end))
+        return res
 
-    ops._launch = timed
+    setattr(module, name, wrapped)
     try:
         yield
     finally:
-        ops._launch = inner
+        setattr(module, name, inner)
 
 
 def _segments() -> int:
@@ -247,17 +272,19 @@ def _path_run(run, *args):
     the launch ms summed, the ms from the call to its first launch's
     start and the gaps between launches (ms, summed and largest), and the
     device memory segments the call allocated."""
-    ev = []
+    from repro_torch.kernels.fhp_step import ops
+    marks = []
     torch.cuda.synchronize()
     seg = _segments()
     start = torch.cuda.Event(enable_timing=True)
-    with _launch_events(ev):
+    with _marked(ops, "_launch", marks):
         t = time.perf_counter()
         start.record()
         res = run(*args)
         host_s = time.perf_counter() - t
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
+    ev = [(a, b) for _, _, a, b in marks]
     gaps = [a[1].elapsed_time(b[0]) for a, b in zip(ev, ev[1:])]
     return res, {"wall_s": wall_s, "host_s": host_s,
                  "kernel_ms": sum(a.elapsed_time(b) for a, b in ev),
@@ -360,6 +387,133 @@ def _print_time(card, label, timed, sites_updates=None):
           f"{bytes_ms:.4f} ms)")
 
 
+def _round_timeline(mesh, placed, kw, card) -> dict:
+    """Phase 7: one overlapped and one serial round of the sharded stepper
+    on the card with CUDA events around each part -- the interior launches
+    (side stream), the boundary-slice exchange, the boundary launches and
+    the in-place composition (current stream); the serial round's
+    exchange and launches -- each part's interval from the round's start,
+    how long the interior and the exchange ran at the same time, and the
+    two rounds' walls.  Returns the overlapped round's numbers (ms)."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels.fhp_step import ops
+    parts = {True: ((ops, "run_extended_interior"),
+                    (distributed, "_exchange_boundary"),
+                    (ops, "run_extended_boundary"), (ops, "compose_split")),
+             False: ((distributed, "_exchange_halo"), (ops, "run_extended"))}
+    steppers = {ov: distributed.make_sharded_stepper(mesh, overlap=ov, **kw)
+                for ov in parts}
+    for step in steppers.values():      # warm: side stream, memory
+        step(placed, 0)
+    torch.cuda.synchronize()
+    spans = {}
+    for ov, wrapped in parts.items():
+        marks = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with contextlib.ExitStack() as stack:
+            for module, name in wrapped:
+                stack.enter_context(_marked(module, name, marks))
+            start.record()
+            res = steppers[ov](placed, 0)
+            end.record()
+        torch.cuda.synchronize()
+        del res
+        cur = torch.cuda.current_stream()
+        spans[ov] = {"round": (0.0, start.elapsed_time(end))}
+        for name in dict.fromkeys(n for n, *_ in marks):
+            calls = [(start.elapsed_time(a), start.elapsed_time(b), st)
+                     for n, st, a, b in marks if n == name]
+            spans[ov][name] = (min(c[0] for c in calls),
+                               max(c[1] for c in calls))
+            stream = "side" if calls[0][2] != cur else "current"
+            print(f"[timeline] {card} | overlap={ov} round: {name} on the "
+                  f"{stream} stream, {len(calls)} calls, "
+                  f"{spans[ov][name][0]:.4f}-{spans[ov][name][1]:.4f} ms "
+                  f"after the round's start, busy "
+                  f"{sum(b - a for a, b, _ in calls):.4f} ms "
+                  f"(calls {[(round(a, 4), round(b, 4)) for a, b, _ in calls]})")
+    sp = spans[True]
+    (i0, i1), (e0, e1) = sp["run_extended_interior"], sp["_exchange_boundary"]
+    both = max(0.0, min(i1, e1) - max(i0, e0))
+    print(f"[timeline] {card} | overlapped round {sp['round'][1]:.4f} ms "
+          f"against the serial round {spans[False]['round'][1]:.4f} ms; the "
+          f"interior launches ({i1 - i0:.4f} ms) and the boundary-slice "
+          f"exchange ({e1 - e0:.4f} ms) ran {both:.4f} ms at the same time")
+    return {"round_ms": sp["round"][1],
+            "serial_round_ms": spans[False]["round"][1],
+            "interior_ms": i1 - i0, "exchange_ms": e1 - e0,
+            "boundary_ms": sp["run_extended_boundary"][1]
+            - sp["run_extended_boundary"][0],
+            "interior_and_exchange_ms": both}
+
+
+def _sharded_pick(mesh, placed, out, mom, walls, card) -> None:
+    """Phase 7: the exchange-latency probe, and ``autotune_launch``'s
+    sharded pick for the phase-6 shard beside the modeled and measured
+    runs of the phase-6 points; a pick whose depth divides the steps runs
+    once through ``make_ensemble_run`` (held bit-equal to phase 3) and is
+    timed ``MAIN_REPEATS`` times."""
+    import math
+
+    from repro_torch.core import distributed
+    from repro_torch.kernels.fhp_step import check, ops
+    from repro_torch.roofline import analysis
+    lat = analysis.measured_exchange_latency()
+    n = torch.cuda.device_count()
+    branch = (f"timed: a ring over {n} cards" if n >= 2 else
+              "the constant EXCHANGE_LATENCY_S: one card has no link to time")
+    print(f"[latency] {card} | measured_exchange_latency() = {lat:.4e} s "
+          f"({branch})")
+    hl, wdl = placed.tiles[0][0].shape[-2:]
+    t = time.perf_counter()
+    pick = ops.autotune_launch(hl, wdl, max_depth=16,
+                               moments_words=mom.shape[-1])
+    print(f"[autotune] {card} | sharded, {hl} x {wdl}-word shards, depth <= "
+          f"16: autotune_launch picks (block_rows, block_words, T, depth, "
+          f"overlap) = {pick} ({time.perf_counter() - t:.2f} s on the host)")
+    bh, bw, T, depth, ov = pick
+    measured = {}
+    if STEPS % depth == 0:
+        k = math.gcd(T_MAIN, depth)      # phase 3 recorded every T_MAIN
+        run, _ = distributed.make_ensemble_run(
+            mesh, STEPS, variant="fhp2", p_force=P_FORCE, depth=depth,
+            steps_per_launch=T, block_rows=bh, block_words=bw, overlap=ov,
+            moments_every=k)
+        _reset_counts()
+        (pout, pmom), first = _path_run(run, placed, 0)
+        _, modes = _counts()
+        every = T_MAIN // k
+        for name, a, b in (("planes", pout.gather(), out),
+                           ("moments", pmom[..., every - 1::every, :], mom)):
+            where = check.first_difference(a, b)
+            if where is not None:
+                raise AssertionError(f"autotuner's sharded pick: {name} "
+                                     f"differ first at {where}")
+        del pout, pmom
+        print(f"[autotune] {card} | the pick through make_ensemble_run: "
+              f"first run {_fmt_run(first)}; launches by mode {modes}; "
+              f"planes and moments bit-equal to phase 3")
+        measured[pick] = _repeats("sharded run at the autotuner's pick",
+                                  card, run, placed, 0)
+    else:
+        print(f"[autotune] {card} | the pick's depth {depth} does not divide "
+              f"{STEPS} steps: not run")
+    default = ops.pick_tile(hl + 2 * DEPTH, wdl + 2, T_MAIN)
+    for o in (False, True):
+        measured[(*default, T_MAIN, DEPTH, o)] = walls[o]
+    sites = LANES * HEIGHT * WIDTH
+    for (pbh, pbw, pt, pd, po), wall in measured.items():
+        cost = ops.sharded_launch_cost(pbh, pt, pd, hl, wdl,
+                                       block_words=pbw, overlap=po)
+        print(f"[autotune] {card} | tile {pbh} x {pbw}, T={pt}, depth {pd}, "
+              f"overlap={po}: modeled {cost:.4e} s a site update, "
+              f"{cost * sites * pd * 1e3:.4f} ms a round, "
+              f"{cost * sites * STEPS:.4f} s a run; measured median "
+              f"{wall:.4f} s a run, {wall / (STEPS // pd) * 1e3:.4f} ms a "
+              f"round{' <- pick' if (pbh, pbw, pt, pd, po) == pick else ''}")
+
+
 def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
                   timed_t1):
     """Phases 6 and 7: the sharded path and the precomputed-RNG path, each
@@ -396,6 +550,20 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
               f"by mode {modes[overlap]}; planes and moments bit-equal to the "
               f"single-device run")
         del got, sout, smom
+        if overlap:
+            # Two more runs from the same placed state, back to back: a
+            # stream or allocator hazard would show as a difference.
+            for i in (2, 3):
+                again, amom = run(placed, 0)
+                for name, a, b in (("planes", again.gather(), out),
+                                   ("moments", amom, mom)):
+                    where = check.first_difference(a, b)
+                    if where is not None:
+                        raise AssertionError(f"overlapped run {i}: {name} "
+                                             f"differ first at {where}")
+                del again, amom
+            print(f"[sharded] overlap=True: runs 2 and 3 from the same "
+                  f"placed state bit-equal to the first")
         walls[overlap] = _repeats(f"sharded run, overlap={overlap}", card,
                                   run, placed, 0)
 
@@ -447,24 +615,37 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     tiles, devs = placed.tiles, sharding.devices
     hl, wdl = tiles[0][0].shape[-2:]
     glob = dict(hg=HEIGHT, wdg=WIDTH // 32, p_force=P_FORCE)
+    rkw = dict(t0=0, steps_per_launch=T_MAIN, moments_every=T_MAIN, **glob)
     ext = distributed._exchange_halo(tiles, DEPTH, devs)
     ex_ms = _time_ms(lambda: distributed._exchange_halo(tiles, DEPTH, devs),
                      reps=5)
+    bnd_ms = _time_ms(lambda: distributed._exchange_boundary(
+        tiles, DEPTH, devs), reps=5)
+    slices = distributed._exchange_boundary(tiles, DEPTH, devs)
 
-    def round_kernels(advance):
-        for iy, row in enumerate(ext):
-            for ix, e in enumerate(row):
-                advance(e, DEPTH, t0=0, y0=iy * hl - DEPTH,
-                        xw0=ix * wdl - 1, steps_per_launch=T_MAIN,
-                        moments_every=T_MAIN, **glob)
+    def each_shard(fn):
+        return lambda: [fn(iy, ix) for iy in range(len(tiles))
+                        for ix in range(len(tiles[0]))]
 
-    for overlap, advance in ((False, ops.run_extended),
-                             (True, ops.run_extended_split)):
-        r_ms = _time_ms(lambda: round_kernels(advance), reps=5)
-        print(f"[time] {card} | one round, overlap={overlap}: exchange "
-              f"{ex_ms:.4f} ms + kernels {r_ms:.4f} ms ({shards} shards) = "
-              f"{ex_ms + r_ms:.4f} ms; measured {walls[overlap] / rounds * 1e3:.4f}"
-              f" ms per round")
+    serial_ms = _time_ms(each_shard(lambda iy, ix: ops.run_extended(
+        ext[iy][ix], DEPTH, y0=iy * hl - DEPTH, xw0=ix * wdl - 1, **rkw)),
+        reps=5)
+    interior_ms = _time_ms(each_shard(lambda iy, ix: ops.run_extended_interior(
+        tiles[iy][ix], DEPTH, y0=iy * hl, xw0=ix * wdl, **rkw)), reps=5)
+    boundary_ms = _time_ms(each_shard(lambda iy, ix: ops.run_extended_boundary(
+        slices[iy][ix], DEPTH, y0=iy * hl, xw0=ix * wdl, **rkw)), reps=5)
+    print(f"[time] {card} | one round, serial, one stream: exchange "
+          f"{ex_ms:.4f} ms + {shards} extended launches {serial_ms:.4f} ms = "
+          f"{ex_ms + serial_ms:.4f} ms; measured "
+          f"{walls[False] / rounds * 1e3:.4f} ms per round (median run)")
+    print(f"[time] {card} | one round, overlap, each part alone on one "
+          f"stream: boundary-slice exchange {bnd_ms:.4f} ms, {shards} "
+          f"interior launches {interior_ms:.4f} ms, {4 * shards} boundary "
+          f"launches {boundary_ms:.4f} ms; measured "
+          f"{walls[True] / rounds * 1e3:.4f} ms per round (median run)")
+    del slices
+    timeline = _round_timeline(mesh, placed, kw, card)
+    _sharded_pick(mesh, placed, out, mom, walls, card)
 
     e = ext[0][0]
     lanes, _, he, wde = e.shape
@@ -496,16 +677,19 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
               ("left", slice(d, he - d), slice(0, 3), d, 0, (hl - 2 * d, 1)),
               ("right", slice(d, he - d), slice(wde - 3, wde), d, wde - 3,
                (hl - 2 * d, 1)))
+    piece_ms = {}
     for name, rows, words, dy, dx, owned in pieces:
         x = e[..., rows, words].contiguous()
         xh, xw = x.shape[-2:]
         pkw = dict(one, y0=-d + dy, xw0=-1 + dx,
                    moment_bounds=(d, xh - d, 1, xw - 1))
         label = f"run_extended_split piece {name} {tuple(x.shape)}"
-        _print_time(card, label, _timed(
+        timed = _timed(
             label, lambda: ops.fhp_step_cuda(x, 0, **pkw),
             lambda: ref.fhp_step_ref(x, 0, **pkw), x, T_MAIN, 1, False,
-            counted, (slice(d, xh - d), slice(1, xw - 1)), owned=owned))
+            counted, (slice(d, xh - d), slice(1, xw - 1)), owned=owned)
+        piece_ms[name] = timed[0]
+        _print_time(card, label, timed)
     del ext, e, dyn
 
     # The two planes are drawn once, outside the timed launches.
@@ -529,12 +713,49 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
     return [
         _entry("fhp_step K5 extended shard", "extended",
                modes[False]["extended"], timed_k5, card,
-               launches_overlap=modes[True]["extended"]),
+               launches_overlap=modes[True]["extended"],
+               split_piece_ms=piece_ms, overlap_round=timeline),
         _entry("fhp_step K6 static solid, extended", "extended_static_solid",
                static_modes["extended_static_solid"], timed_k6, card),
         _entry("fhp_step K2 precomputed RNG", "precomputed_rng",
                k2_modes["precomputed_rng"], timed_k2, card),
     ]
+
+
+def _single_device_pick(planes, card, swept, n_moments, counted) -> None:
+    """Phase 4: ``autotune_launch``'s single-device pick for this lattice
+    beside the measured tile and T sweeps ``swept`` ((bh, bw, T) -> ms a
+    launch): for each timed point the modeled cost against the main
+    tile's at T = 8, beside the measured ms a step against its; the pick
+    itself is timed (held bit-equal to the plain version first) where the
+    sweeps did not time it."""
+    from repro_torch.kernels.fhp_step import ops, ref
+    wd = WIDTH // 32
+    pick = ops.autotune_launch(HEIGHT, wd, moments_words=n_moments)
+    bh, bw, T = pick
+    if pick not in swept:
+        kw = dict(p_force=P_FORCE, steps_per_launch=T, block_rows=bh,
+                  block_words=bw)
+        timed = _timed("autotuner's pick", lambda: ops.fhp_step_cuda(
+            planes, 0, **kw), lambda: ref.fhp_step_ref(planes, 0, **kw),
+            planes, T, 0, False, counted)
+        swept[pick] = timed[0]
+    main = (*ops.pick_tile(HEIGHT, wd, T_MAIN), T_MAIN)
+    base_cost = ops.launch_cost(main[0], T_MAIN, main[1], wd,
+                                moments_words=n_moments)
+    base_ms = swept[main] / T_MAIN
+    print(f"[autotune] {card} | single device, {HEIGHT} x {wd} words: "
+          f"autotune_launch picks tile {bh} x {bw} at T={T} ("
+          f"{swept[pick]:.4f} ms/launch, {swept[pick] / T:.4f} ms per step "
+          f"against {base_ms:.4f} at the main tile {main[:2]}, T={T_MAIN})")
+    for (h_, w_, t_), t_ms in sorted(swept.items(), key=lambda kv: kv[0][2]):
+        cost = ops.launch_cost(h_, t_, w_, wd, moments_words=n_moments)
+        fits = ops.smem_bytes(h_, w_, t_) <= ops.TILE_SMEM_BYTES
+        print(f"[autotune] {card} | tile {h_} x {w_}, T={t_}: modeled cost "
+              f"{cost / base_cost:.4f} of the main tile's, measured ms per "
+              f"step {t_ms / t_ / base_ms:.4f} of its"
+              f"{'' if fits else ' (outside the two-blocks-an-SM budget)'}"
+              f"{' <- pick' if (h_, w_, t_) == pick else ''}")
 
 
 def _equal_words(label, got, want) -> None:
@@ -943,6 +1164,7 @@ def main() -> int:
     # per-step time at T in {1, 2, 4, 8} with pick_tile's tile.
     kw = dict(p_force=P_FORCE, steps_per_launch=T_MAIN)
     want = ops.fhp_step_cuda(planes, 0, **kw)
+    swept = {}      # (bh, bw, T) -> ms a launch, for the model's ratios
     for bh, bw in TILES:
         tkw = dict(kw, block_rows=bh, block_words=bw)
         where = check.first_difference(ops.fhp_step_cuda(planes, 0, **tkw),
@@ -950,6 +1172,7 @@ def main() -> int:
         if where is not None:
             raise AssertionError(f"tile {(bh, bw)} differs first at {where}")
         t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
+        swept[bh, bw, T_MAIN] = t_ms
         occ = ops.kernel_info("fhp2", "periodic", False, bh, bw, T_MAIN)
         print(f"[tile] {card} | T={T_MAIN} tile {bh} x {bw}: {t_ms:.4f} "
               f"ms/launch, apron {_apron(bh, bw, T_MAIN):.3f}x, lanes "
@@ -971,6 +1194,7 @@ def main() -> int:
     for T in (1, 2, 4, 8):
         tkw = dict(p_force=P_FORCE, steps_per_launch=T)
         t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
+        swept[(*ops.pick_tile(HEIGHT, WIDTH // 32, T), T)] = t_ms
         print(f"[steps] {card} | T={T} tile "
               f"{ops.pick_tile(HEIGHT, WIDTH // 32, T)}: {t_ms:.4f} ms/launch"
               f", {t_ms / T:.4f} ms per step")
@@ -994,6 +1218,14 @@ def main() -> int:
           f"{', '.join(f'{y:.4f}' for y in ys)} ms/launch; fit {a:.4f} ms a "
           f"launch + {b * 1e9:.4f} ms per 1e9 thread word-steps; at "
           f"T={T_MAIN} the steps take {1 - a / ys[-1]:.4f} of the launch")
+    # The cost model's compute weight, re-derived from this fit: one
+    # thread word-step against moving one 8-plane word cell (32 B) at the
+    # card's datasheet memory rate.
+    print(f"[model] {card} | one thread word-step {b * 1e6:.4f} ns against "
+          f"{32 / HBM_BYTES_PER_S * 1e9:.4f} ns to move a 32-byte word cell:"
+          f" compute row weight {b * 1e-3 / (32 / HBM_BYTES_PER_S):.4f} "
+          f"(ops.COMPUTE_ROW_WEIGHT = {ops.COMPUTE_ROW_WEIGHT})")
+    _single_device_pick(planes, card, swept, ms.n_moments, counted)
 
     k_ms = results[f"T={T_MAIN}"][0]
     print(f"[time] {card} | main path: {launches} launches x {k_ms:.4f} ms "

@@ -16,11 +16,13 @@ index over those axes, first axis major, as ``lax.axis_index`` gives it)
 and words over ``x_axis``.  Each round exchanges a depth-``d`` halo -- the
 x halo (one word each side) first, then the y halo on the x-extended
 shards, so the corners ride along -- and advances every shard ``d`` steps
-with ``kernels.fhp_step.ops.run_extended`` (or ``run_extended_split`` with
-``overlap``): the kernel's extended-shard mode on a CUDA slot, its plain
-version on a CPU slot.  The counter RNG hashes global coordinates mod the
-global extents, so every scheme is bit-identical to the single-device
-run.  ``make_solid_cache`` exchanges a static solid plane's apron once per
+with ``kernels.fhp_step.ops.run_extended``: the kernel's extended-shard
+mode on a CUDA slot, its plain version on a CPU slot.  With ``overlap``
+a round is split as ``ops.run_extended_split`` splits it, and each card
+runs the interior launches on a side stream while its current stream
+exchanges only the slices the boundary launches read.  The counter RNG
+hashes global coordinates mod the global extents, so every scheme is
+bit-identical to the single-device run.  ``make_solid_cache`` exchanges a static solid plane's apron once per
 geometry, and the ``static_solid`` stepper then moves 7 dynamic planes
 per round against the cached tile.
 
@@ -31,6 +33,7 @@ to compare against.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Sequence, Tuple, Union
@@ -238,9 +241,52 @@ def _exchange_halo(tiles: Grid, d: int, devices) -> Grid:
                  for rows in zip(top, ext, bot))
 
 
+def _exchange_boundary(tiles: Grid, d: int, devices):
+    """The overlapped round's exchange: the rings of ``_exchange_halo``,
+    but building only the four slices of each extended shard that its
+    boundary launches read (``ops.boundary_slices``), not the shard.  Each
+    band is its ``d`` halo rows, corner words included, over ``2d`` own
+    rows, all widened by the neighbour words; each strip is a neighbour
+    word beside two own words.  Returns ``grid[iy][ix] = (top, bottom,
+    left, right)``."""
+    ny, nx = len(tiles), len(tiles[0])
+    left = _ppermute([[t[..., -1:] for t in row] for row in tiles], 1,
+                     _ring(nx, up=True), devices)
+    right = _ppermute([[t[..., :1] for t in row] for row in tiles], 1,
+                      _ring(nx, up=False), devices)
+
+    def widened(rows):      # own rows with the neighbour words either side
+        return [[torch.cat([a[..., rows, :], t[..., rows, :],
+                            b[..., rows, :]], dim=-1)
+                 for a, t, b in zip(*row)]
+                for row in zip(left, tiles, right)]
+
+    head, tail = widened(slice(None, 2 * d)), widened(slice(-2 * d, None))
+    above = _ppermute([[e[..., d:, :] for e in row] for row in tail], 0,
+                      _ring(ny, up=True), devices)
+    below = _ppermute([[e[..., :d, :] for e in row] for row in head], 0,
+                      _ring(ny, up=False), devices)
+    return tuple(
+        tuple((torch.cat([u, h], dim=-2), torch.cat([e, b], dim=-2),
+               torch.cat([a, t[..., :2]], dim=-1),
+               torch.cat([t[..., -2:], c], dim=-1))
+              for u, h, e, b, a, t, c in zip(*rows))
+        for rows in zip(above, head, tail, below, left, tiles, right))
+
+
 def _psum(parts, device) -> torch.Tensor:
     """The int32 sum of per-shard moments (wrapping like ``lax.psum``)."""
     return prng.wrap_i32(sum(m.to(device, torch.int64) for m in parts))
+
+
+@dataclasses.dataclass(frozen=True)
+class SolidCache(ShardedPlanes):
+    """``make_solid_cache``'s result: each shard's extended solid tile
+    (``tiles``) and, made once with it, the contiguous solid of each launch
+    of the overlapped round (``pieces[iy][ix]``: the shard's own ``(hl,
+    wdl)`` window, then its four ``ops.boundary_slices``)."""
+
+    pieces: tuple = ()
 
 
 def make_solid_cache(mesh: Mesh, *, y_axes: Axes = ("data",),
@@ -249,19 +295,25 @@ def make_solid_cache(mesh: Mesh, *, y_axes: Axes = ("data",),
     exchange of the static solid plane.
 
     ``solid`` is the ``(H, Wd)`` packed solid plane (a tensor, or already
-    placed); the result holds each shard's ``(hl + 2*depth, wdl + 2)``
-    extended tile.  The solid never changes, so the apron stays exact for
-    the geometry's lifetime: rebuild only when the geometry changes."""
+    placed); the result, a :class:`SolidCache`, holds each shard's ``(hl +
+    2*depth, wdl + 2)`` extended tile and the pieces of it that the
+    overlapped round's launches read.  The solid never changes, so the
+    apron stays exact for the geometry's lifetime: rebuild only when the
+    geometry changes."""
     sharding = lattice_spec(mesh, y_axes, x_axis)
 
-    def extend(solid) -> ShardedPlanes:
+    def extend(solid) -> SolidCache:
         placed = solid if isinstance(solid, ShardedPlanes) \
             else sharding.place(solid)
         hl = placed.tiles[0][0].shape[-2]
         if depth > hl:
             raise ValueError(f"depth={depth} > local rows {hl}")
-        return ShardedPlanes(placed.sharding, _exchange_halo(
-            placed.tiles, depth, placed.sharding.devices))
+        ext = _exchange_halo(placed.tiles, depth, placed.sharding.devices)
+        pieces = tuple(tuple(
+            tuple(p.contiguous() for p in (s[..., depth:-depth, 1:-1],)
+                  + ops.boundary_slices(s, depth))
+            for s in row) for row in ext)
+        return SolidCache(placed.sharding, ext, pieces)
 
     return extend
 
@@ -276,12 +328,22 @@ def make_sharded_stepper(mesh: Mesh, *, y_axes: Axes = ("data",),
     """Build ``step(planes, t) -> planes`` advancing ``depth`` global steps
     per halo exchange on the :class:`ShardedPlanes` ``planes``.
 
-    Each shard runs ``ops.run_extended`` (``overlap``: its interior /
-    boundary split ``run_extended_split``, launched in order) on its
-    exchanged extended shard, with ``steps_per_launch`` = T steps per
-    launch (default ``min(depth, 8)``) and ``block_rows``/``block_words``
-    as the tile (0 = ``ops.pick_tile``'s).  ``planes`` may carry leading
-    ensemble-lane axes.
+    Each shard runs ``ops.run_extended`` on its exchanged extended shard,
+    with ``steps_per_launch`` = T steps per launch (default ``min(depth,
+    8)``) and ``block_rows``/``block_words`` as the tile (0 =
+    ``ops.pick_tile``'s).  ``planes`` may carry leading ensemble-lane
+    axes.
+
+    ``overlap`` splits each round as ``ops.run_extended_split`` does:
+    ``ops.run_extended_interior`` on each bare shard, which needs no halo,
+    runs on a side stream of its card (made once) while the current
+    stream builds only the four slices the boundary launches read
+    (``_exchange_boundary``) and runs ``ops.run_extended_boundary`` on
+    them; then, once the side stream is done, ``ops.compose_split`` writes
+    the boundary pieces into the interior's output in place, which becomes
+    the round's tile.  Five launches a shard a round; on CPU slots the
+    same pieces run in order.  Shards with no interior (``hl <= 2 *
+    depth`` or ``wdl <= 2``) take the serial round.
 
     ``static_solid`` returns ``step(dyn, solid_ext, t) -> dyn`` instead:
     ``dyn`` holds the dynamic planes and ``solid_ext`` is the cached
@@ -306,7 +368,6 @@ def make_sharded_stepper(mesh: Mesh, *, y_axes: Axes = ("data",),
         raise ValueError(f"moments_every={k} must divide depth={depth}")
     sharding = lattice_spec(mesh, y_axes, x_axis)
     ny, nx = sharding.ny, sharding.nx
-    advance = ops.run_extended_split if overlap else ops.run_extended
 
     def chunk(planes: ShardedPlanes, solid_ext, t: int):
         hl, wdl = planes.tiles[0][0].shape[-2:]
@@ -326,13 +387,12 @@ def make_sharded_stepper(mesh: Mesh, *, y_axes: Axes = ("data",),
                                                             wdl + 2):
                     raise ValueError(f"solid_ext tile {tuple(sol.shape)} "
                                      f"is not of depth {d}")
-                out = advance(ext[iy][ix], d, t0=t, p_force=p_force,
-                              y0=iy * hl - d, xw0=ix * wdl - 1,
-                              hg=ny * hl, wdg=nx * wdl,
-                              steps_per_launch=steps_per_launch,
-                              block_rows=block_rows, block_words=block_words,
-                              solid_ext=sol, variant=variant,
-                              moments_every=k)
+                out = ops.run_extended(
+                    ext[iy][ix], d, t0=t, p_force=p_force,
+                    y0=iy * hl - d, xw0=ix * wdl - 1, hg=ny * hl,
+                    wdg=nx * wdl, steps_per_launch=steps_per_launch,
+                    block_rows=block_rows, block_words=block_words,
+                    solid_ext=sol, variant=variant, moments_every=k)
                 if k:
                     out, m = out
                     moms.append(m)
@@ -343,9 +403,78 @@ def make_sharded_stepper(mesh: Mesh, *, y_axes: Axes = ("data",),
             return out, _psum(moms, sharding.devices[0][0])
         return out
 
+    side_streams = {}       # device -> its side stream, made at first use
+
+    def overlapped(planes: ShardedPlanes, solid_ext, t: int):
+        hl, wdl = planes.tiles[0][0].shape[-2:]
+        d = depth
+        if hl <= 2 * d or wdl <= 2:       # no interior: the serial round
+            return chunk(planes, solid_ext, t)
+        kw = dict(t0=t, p_force=p_force, hg=ny * hl, wdg=nx * wdl,
+                  steps_per_launch=steps_per_launch, block_rows=block_rows,
+                  block_words=block_words, variant=variant, moments_every=k)
+        shards = [(iy, ix, dev) for iy, row in enumerate(sharding.devices)
+                  for ix, dev in enumerate(row)]
+        solid = {}
+        if static_solid:
+            if not isinstance(solid_ext, SolidCache):
+                raise ValueError("the overlapped round reads the solid "
+                                 "pieces of make_solid_cache's SolidCache")
+            for iy, ix, _ in shards:
+                sol = solid_ext.tiles[iy][ix]
+                if tuple(sol.shape) != (hl + 2 * d, wdl + 2):
+                    raise ValueError(f"solid_ext tile {tuple(sol.shape)} "
+                                     f"is not of depth {d}")
+                solid[iy, ix] = solid_ext.pieces[iy][ix]
+        # On a card the interior launches run on its side stream, which
+        # starts once the current stream has written the previous round's
+        # tiles; the current stream exchanges the boundary slices and runs
+        # the boundary launches meanwhile.  Tensors one stream allocates
+        # and the other uses are recorded on it for the caching allocator.
+        cards = {dev for _, _, dev in shards if dev.type == "cuda"}
+        cur = {dev: torch.cuda.current_stream(dev) for dev in cards}
+        for dev in cards:
+            if dev not in side_streams:
+                side_streams[dev] = torch.cuda.Stream(dev)
+            side_streams[dev].wait_event(cur[dev].record_event())
+        interior = {}
+        for iy, ix, dev in shards:
+            tile = planes.tiles[iy][ix]
+            with (torch.cuda.stream(side_streams[dev]) if dev in cards
+                  else contextlib.nullcontext()):
+                out = ops.run_extended_interior(
+                    tile, d, y0=iy * hl, xw0=ix * wdl,
+                    solid=solid[iy, ix][0] if solid else None, **kw)
+            if dev in cards:
+                tile.record_stream(side_streams[dev])
+                for x in out if k else (out,):
+                    x.record_stream(cur[dev])
+            interior[iy, ix] = out
+        done = {dev: side_streams[dev].record_event() for dev in cards}
+        slices = _exchange_boundary(planes.tiles, d, sharding.devices)
+        pieces = {(iy, ix): ops.run_extended_boundary(
+                      slices[iy][ix], d, y0=iy * hl, xw0=ix * wdl,
+                      solid=solid[iy, ix][1:] if solid else None, **kw)
+                  for iy, ix, _ in shards}
+        for dev in cards:
+            cur[dev].wait_event(done[dev])
+        rows = [[None] * nx for _ in range(ny)]
+        moms = []
+        for iy, ix, _ in shards:
+            tile, bnd = interior[iy, ix], pieces[iy, ix]
+            if k:
+                (tile, m), (bnd, mb) = tile, bnd
+                moms.append(m + mb)
+            rows[iy][ix] = ops.compose_split(tile, bnd)
+        out = ShardedPlanes(sharding, tuple(map(tuple, rows)))
+        if k:
+            return out, _psum(moms, sharding.devices[0][0])
+        return out
+
+    step = overlapped if overlap else chunk
     if static_solid:
-        return chunk
-    return lambda planes, t: chunk(planes, None, t)
+        return step
+    return lambda planes, t: step(planes, None, t)
 
 
 def make_run(mesh: Mesh, steps: int, *, batched: bool = False, **kw):

@@ -12,7 +12,12 @@ static-geometry layout, ``record_steps`` for fused moments,
 launches plus one remainder launch, with the moments schedule unrolled.
 ``run_extended`` and ``run_extended_split`` advance a halo-extended shard
 like their namesakes in the reference: the sharded stepper's hot path
-(``core.distributed``).
+(``core.distributed``); the split's two halves, ``run_extended_interior``
+and ``run_extended_boundary`` (with ``boundary_slices`` and
+``compose_split``), are the overlapped round's pieces.  ``launch_cost``,
+``sharded_launch_cost`` and ``autotune_launch`` are the reference's cost
+model and tile search, re-based on this kernel's shared memory and the
+H100's rates.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel
 (``csrc/fhp_step.cu``, built at first use) or raises; a CPU tensor takes
@@ -36,6 +41,7 @@ import torch
 from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import build, codegen
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
+from repro_torch.roofline import analysis as _roofline
 
 # Kernel launches since the count was last cleared, by mode ("periodic",
 # "static_solid", "extended", "extended_static_solid", "precomputed_rng");
@@ -118,6 +124,199 @@ def pick_tile(h: int, wd: int, steps: int = 1, static_solid: bool = False,
         rows //= 2
     raise ValueError(f"no valid tile for H={h}, Wd={wd}, "
                      f"steps_per_launch={steps}")
+
+
+# --------------------------------------------------------------------------
+# The launch cost model and the autotuner (reference ops.py:43-50,
+# :157-362), re-based on the H100: tiles are bounded by the kernel's shared
+# memory (``smem_bytes`` against ``TILE_SMEM_BYTES``, two blocks an SM) and
+# a word-step of compute is priced at the card's own rate.
+
+# The cost of one thread word-step of the kernel against moving one 8-plane
+# word cell (32 B) through device memory: the weight of redundant apron
+# compute in ``launch_cost`` and ``sharded_launch_cost``.  The reference's
+# 0.2 prices a memory-bound TPU kernel; this kernel is bound by its integer
+# work.  chip_smoke.py phase 4's ``[split]`` fit on an NVIDIA H100 80GB HBM3
+# (700 W) gives 21.1448 ms per 1e9 thread word-steps, 2.1145e-11 s each,
+# against 32 B / 3.35e12 B/s = 9.5522e-12 s a word cell: 2.21.
+COMPUTE_ROW_WEIGHT = 2.21
+
+
+def launch_cost(bh: int, steps: int, block_words: int = 0,
+                width_words: int = 0, moments_words: int = 0) -> float:
+    """Modeled cost per useful site update, in word-cell units of memory
+    traffic: per tile per launch a ``(bh + 2*steps) x (bw + 2*hx)`` read
+    (``hx`` = ``steps`` when the tile is narrower than the lattice, else 0)
+    and a ``bh x bw`` write, plus the shrinking apron extents of redundant
+    compute weighted by ``COMPUTE_ROW_WEIGHT``, for ``bh * bw * steps``
+    useful word-updates; ``moments_words`` (records x n_moments) adds the
+    moments each tile writes.  The reference's formula."""
+    bw = (min(block_words, width_words) if block_words and width_words
+          else block_words) or width_words or 1
+    x_blocked = bool(block_words and width_words and
+                     block_words < width_words)
+    hx = steps if x_blocked else 0
+    mem = (bh + 2 * steps) * (bw + 2 * hx) + bh * bw + moments_words
+    comp = sum((bh + 2 * (steps - s - 1))
+               * (bw + 2 * (steps - s - 1) if x_blocked else bw)
+               for s in range(steps))
+    return (mem + COMPUTE_ROW_WEIGHT * comp) / (bh * bw * steps)
+
+
+def hbm_bytes_per_site(bh: int, steps: int, block_words: int = 0,
+                       width_words: int = 0, n_planes: int = 8,
+                       moments_words: int = 0) -> float:
+    """Modeled device-memory bytes per site update of one T-step launch
+    (``n_planes`` 4-byte words a word cell, ``moments_words`` the moments
+    each tile writes)."""
+    bw = (min(block_words, width_words) if block_words and width_words
+          else block_words) or width_words or 1
+    x_blocked = bool(block_words and width_words and
+                     block_words < width_words)
+    hx = steps if x_blocked else 0
+    return ((n_planes * 4 * ((bh + 2 * steps) * (bw + 2 * hx) + bh * bw)
+             + 4 * moments_words)
+            / (32.0 * bh * bw * steps))
+
+
+def sharded_hbm_bytes_per_site(bh: int, steps: int, depth: int,
+                               hl: int, wdl: int,
+                               static_solid: bool = False,
+                               block_words: int = 0,
+                               n_planes: int = 8) -> float:
+    """Modeled device-memory bytes per useful site update of the sharded
+    extended-shard path (``roofline.analysis.sharded_fhp_traffic``)."""
+    return _roofline.sharded_fhp_traffic(
+        hl, wdl, depth=depth, T=steps, block_rows=bh,
+        block_words=block_words, n_planes=n_planes,
+        static_solid=static_solid)["hbm_bytes_per_site_step"]
+
+
+def sharded_launch_cost(bh: int, steps: int, depth: int,
+                        hl: int, wdl: int, *,
+                        static_solid: bool = False,
+                        block_words: int = 0,
+                        n_planes: int = 8,
+                        overlap: bool = False,
+                        exchange_latency_s: float | None = None) -> float:
+    """Modeled seconds per useful site update of the sharded path on the
+    H100's datasheet rates: memory, weighted apron compute, exchange bytes
+    and exchange latency (``roofline.analysis.sharded_fhp_traffic``).
+    ``overlap`` prices the split round: ``max(t_exchange, t_interior) +
+    t_boundary`` where that is cheaper than the serial sum, else the
+    serial cost.  ``exchange_latency_s=None`` takes
+    ``measured_exchange_latency()``."""
+    if exchange_latency_s is None:
+        exchange_latency_s = _roofline.measured_exchange_latency()
+    return _roofline.sharded_fhp_traffic(
+        hl, wdl, depth=depth, T=steps, block_rows=bh,
+        block_words=block_words, n_planes=n_planes,
+        compute_row_weight=COMPUTE_ROW_WEIGHT,
+        exchange_latency_s=exchange_latency_s,
+        static_solid=static_solid, overlap=overlap)["total_s_per_site"]
+
+
+def _bw_candidates(width: int, divisors_only: bool):
+    """Word-block candidates: the full width plus descending powers of two
+    (only divisors of ``width`` with ``divisors_only``).  The reference's
+    list."""
+    cands = [width]
+    bw = 1
+    while bw * 2 < width:
+        bw *= 2
+    while bw >= 1:
+        if not divisors_only or width % bw == 0:
+            cands.append(bw)
+        bw //= 2
+    return cands
+
+
+def _tile_candidates(h: int, wd: int, steps: int, static_solid: bool = False,
+                     n_planes: int = 8, smem_budget: int = TILE_SMEM_BYTES):
+    """The ``(block_rows, block_words)`` the autotuner tries at T =
+    ``steps``: words from ``_bw_candidates`` (no divisibility: edge tiles
+    mask) and the widths whose row with its apron fills whole 64-word warp
+    rows (``64k - 2T``, ``pick_tile``'s); rows 1, 2, 4, every multiple of
+    8 and the most whose tile fits ``smem_budget``, clipped to ``h``.
+    Every tile passes ``_tile_ok`` and fits the budget."""
+    words = _bw_candidates(wd, divisors_only=False)
+    words += [w for w in range(MAX_TILE - 2 * steps, wd, MAX_TILE)
+              if w not in words]
+    for bw in words:
+        per_row = smem_bytes(1, bw, steps, static_solid,
+                             n_planes) // (1 + 2 * steps)
+        most = min(smem_budget // per_row - 2 * steps, h)
+        rows = sorted({r for r in (1, 2, 4, most) if r <= most}
+                      | set(range(8, most + 1, 8)), reverse=True)
+        for bh in rows:
+            if (smem_bytes(bh, bw, steps, static_solid, n_planes)
+                    <= smem_budget and _tile_ok(bh, bw, h, wd, steps,
+                                                static_solid, n_planes)):
+                yield bh, bw
+
+
+def autotune_launch(h: int, wd: int, *, max_steps: int = MAX_STEPS_PER_LAUNCH,
+                    smem_budget: int = TILE_SMEM_BYTES,
+                    max_depth: int | None = None,
+                    static_solid: bool = False,
+                    n_planes: int = 8,
+                    exchange_latency_s: float | None = None,
+                    moments_words: int = 0):
+    """The launch configuration of least modeled cost over
+    ``_tile_candidates`` (tiles within ``smem_budget``) and T in ``[1,
+    max_steps]``.
+
+    Single device (``max_depth=None``): ``(block_rows, block_words,
+    steps_per_launch)`` minimising ``launch_cost`` on an ``(h, wd)``
+    lattice; ``moments_words`` (records x n_moments) prices the moments.
+
+    Sharded (``max_depth`` set): ``h``/``wd`` are the shard's ``hl`` /
+    ``wdl``, and the result is ``(block_rows, block_words,
+    steps_per_launch, depth, overlap)`` minimising
+    ``sharded_launch_cost`` over depths ``T <= depth <= min(max_depth,
+    31, hl)`` (the x halo is one word; the exchange reaches the nearest
+    shard only) and both values of ``overlap``; ties keep
+    ``overlap=False``.  ``block_words`` is a tile of the extended width
+    ``wdl + 2``.  ``exchange_latency_s=None`` takes
+    ``measured_exchange_latency()``.  Nothing on the main path calls
+    this."""
+    best, best_cost = None, None
+    if max_depth is None:
+        for T in range(1, max_steps + 1):
+            for bh, bw in _tile_candidates(h, wd, T, static_solid, n_planes,
+                                           smem_budget):
+                cost = launch_cost(bh, T, bw, wd, moments_words=moments_words)
+                if best_cost is None or cost < best_cost:
+                    best, best_cost = (bh, bw, T), cost
+        if best is None:
+            raise ValueError(f"no valid launch config for H={h}, Wd={wd}")
+        return best
+
+    if exchange_latency_s is None:
+        exchange_latency_s = _roofline.measured_exchange_latency()
+    hl, wdl = h, wd
+    deepest = min(max_depth, 31, hl)
+    for T in range(1, min(max_steps, deepest) + 1):
+        for bh, bw in _tile_candidates(hl, wdl + 2, T, static_solid,
+                                       n_planes, smem_budget):
+            for depth in range(T, deepest + 1):
+                # One call prices both plans: its serial cost, and the
+                # split round's where that is cheaper (else the same).
+                m = _roofline.sharded_fhp_traffic(
+                    hl, wdl, depth=depth, T=T, block_rows=bh,
+                    block_words=bw, n_planes=n_planes,
+                    compute_row_weight=COMPUTE_ROW_WEIGHT,
+                    exchange_latency_s=exchange_latency_s,
+                    static_solid=static_solid, overlap=True)
+                for overlap, cost in ((False, m["serial_s_per_site"]),
+                                      (True, m["total_s_per_site"])):
+                    if best_cost is None or cost < best_cost:
+                        best, best_cost = (bh, bw, T, depth,
+                                           overlap), cost
+    if best is None:
+        raise ValueError(f"no valid sharded launch config for "
+                         f"hl={hl}, wdl={wdl}")
+    return best
 
 
 def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
@@ -426,6 +625,78 @@ def run_extended(ext: torch.Tensor, steps: int, *, t0: int = 0,
                             dtype=torch.int32, device=ext.device)
 
 
+def boundary_slices(ext: torch.Tensor, steps: int):
+    """``(top, bottom, left, right)``: the four views of a halo-extended
+    shard ``(..., hl + 2d, wdl + 2)`` that the boundary launches read (d =
+    ``steps``) -- the ``3d``-row bands at either end at full extended
+    width (``d`` halo rows, corners included, and the ``2d`` own rows
+    whose light cone reaches them) and the 3-word strips over the shard
+    rows at either side (the halo word and two own words)."""
+    d = int(steps)
+    he, wde = ext.shape[-2:]
+    return (ext[..., :3 * d, :], ext[..., he - 3 * d:, :],
+            ext[..., d:he - d, :3], ext[..., d:he - d, wde - 3:])
+
+
+def run_extended_interior(tile: torch.Tensor, steps: int, *, y0: int = 0,
+                          xw0: int = 0, solid: torch.Tensor | None = None,
+                          **kw):
+    """The interior half of the split round: ``run_extended`` on the bare
+    ``(..., hl, wdl)`` shard ``tile`` (its word (0, 0) at global ``(y0,
+    xw0)``), which reads no halo and so can run while the halo is
+    exchanged.  After the call rows ``[d, hl - d)`` and words ``[1, wdl -
+    1)`` hold the stepped shard (d = ``steps``), and the moments cover
+    that window.  ``solid`` is the shard's own ``(hl, wdl)`` solid window
+    in static-geometry mode; ``kw`` as ``run_extended``'s."""
+    return run_extended(tile, steps, y0=y0, xw0=xw0, solid_ext=solid, **kw)
+
+
+def run_extended_boundary(slices, steps: int, *, y0: int = 0, xw0: int = 0,
+                          solid=None, moments_every: int = 0, **kw):
+    """The boundary half of the split round: one ``run_extended`` on each
+    of the four ``boundary_slices`` ``(top, bottom, left, right)`` of a
+    shard whose own word (0, 0) lies at global ``(y0, xw0)``; ``solid``
+    the same four slices of its extended solid (static geometry).
+
+    Returns the four valid pieces -- shard rows ``[0, d)`` and ``[hl - d,
+    hl)`` at full shard width, and words ``0`` and ``wdl - 1`` of rows
+    ``[d, hl - d)`` -- which ``compose_split`` writes into the interior
+    half's output; with ``moments_every`` = k, ``(pieces, moments)``, the
+    moments summed in int32 over the four pieces' windows."""
+    d = int(steps)
+    hl, wdl = slices[2].shape[-2], slices[0].shape[-1] - 2
+    origins = ((-d, -1), (hl - 2 * d, -1), (0, -1), (0, wdl - 2))
+    k = int(moments_every)
+    outs, moms = [], []
+    for x, (dy, dx), sol in zip(slices, origins, solid or (None,) * 4):
+        out = run_extended(x, d, y0=y0 + dy, xw0=xw0 + dx, solid_ext=sol,
+                           moments_every=k, **kw)
+        if k:
+            out, m = out
+            moms.append(m)
+        outs.append(out)
+    top, bottom, left, right = outs
+    pieces = (top[..., d:2 * d, 1:1 + wdl], bottom[..., d:2 * d, 1:1 + wdl],
+              left[..., d:hl - d, 1:2], right[..., d:hl - d, 1:2])
+    if k:
+        return pieces, functools.reduce(torch.add, moms)
+    return pieces
+
+
+def compose_split(tile: torch.Tensor, pieces) -> torch.Tensor:
+    """Write ``run_extended_boundary``'s valid pieces into the margins of
+    the interior half's output ``tile`` ``(..., hl, wdl)``, in place: rows
+    ``[0, d)`` and ``[hl - d, hl)``, and words ``0`` and ``wdl - 1`` of
+    the rows between.  Returns ``tile``, now the whole stepped shard."""
+    top, bottom, left, right = pieces
+    d, hl = top.shape[-2], tile.shape[-2]
+    tile[..., :d, :] = top
+    tile[..., hl - d:, :] = bottom
+    tile[..., d:hl - d, :1] = left
+    tile[..., d:hl - d, -1:] = right
+    return tile
+
+
 def run_extended_split(ext: torch.Tensor, steps: int, *, t0: int = 0,
                        p_force: float = 0.0, y0: int = 0, xw0: int = 0,
                        hg: int, wdg: int, steps_per_launch: int | None = None,
@@ -438,61 +709,43 @@ def run_extended_split(ext: torch.Tensor, steps: int, *, t0: int = 0,
     window.
 
     ``ext`` is the usual ``(..., He, Wde)`` shard with ``He = hl + 2*steps``
-    and ``Wde = wdl + 2``.  The **interior** launch runs on the bare
-    ``(hl, wdl)`` shard, so it does not read the exchanged apron; four
-    **boundary** launches cover the rest:
+    and ``Wde = wdl + 2``.  The composition of the two halves:
+    ``run_extended_interior`` on the bare ``(hl, wdl)`` shard, which does
+    not read the exchanged apron, and ``run_extended_boundary`` on its
+    four ``boundary_slices`` (two ``3*steps``-row bands at full extended
+    width, two 3-word strips), each a ``run_extended`` with shifted
+    ``y0``/``xw0`` (and the same slice of ``solid_ext``), whose valid
+    pieces ``compose_split`` writes into the interior's output.  Their
+    moments, counted over disjoint windows that tile the shard, add up to
+    the serial path's.  Degenerate shards (``hl <= 2*steps`` or ``wdl <=
+    2``) take ``run_extended`` itself.
 
-    * top / bottom: ``3*steps``-row bands at full extended width; valid
-      output = shard rows ``[0, d)`` / ``[hl - d, hl)``, all words;
-    * left / right: 3-word strips over shard rows ``[d, hl - d)``; valid
-      output = shard word ``0`` / ``wdl - 1``.
-
-    Each piece is ``run_extended`` on a slice with shifted ``y0``/``xw0``
-    (and the slice of ``solid_ext``), and the exact valid pieces are
-    written into a zero array of ``ext``'s shape.  Their moments, counted
-    over disjoint windows that tile the shard, add up to the serial
-    path's.  Degenerate shards (``hl <= 2*steps`` or ``wdl <= 2``) take
-    ``run_extended`` itself.
-
-    The launches are issued in order on the current stream; running the
-    interior launch beside the halo exchange is for a later version."""
+    Like the reference's, the result is ``ext``-shaped with the stepped
+    shard in its window and a zero apron.  The sharded stepper's
+    ``overlap`` round (``core.distributed``) calls the two halves itself:
+    the interior on the previous round's tile on a side stream while the
+    current stream exchanges only the boundary slices, composing in place
+    with no ``ext``-shaped array."""
     d = int(steps)
     he, wde = ext.shape[-2:]
     hl, wdl = he - 2 * d, wde - 2
-    k = int(moments_every)
-    run = functools.partial(
-        run_extended, t0=t0, p_force=p_force, hg=hg, wdg=wdg,
-        steps_per_launch=steps_per_launch, block_rows=block_rows,
-        block_words=block_words, moments_every=k,
-        moments_offset=moments_offset, **kw)
+    kw = dict(kw, t0=t0, p_force=p_force, hg=hg, wdg=wdg,
+              steps_per_launch=steps_per_launch, block_rows=block_rows,
+              block_words=block_words, moments_every=moments_every,
+              moments_offset=moments_offset)
     if hl <= 2 * d or wdl <= 2:
-        return run(ext, d, y0=y0, xw0=xw0, solid_ext=solid_ext)
-
-    moms = []
-
-    def sub(rows, words, y_off, xw_off):
-        se = None if solid_ext is None else solid_ext[rows, words]
-        out = run(ext[..., rows, words], d, y0=y0 + y_off, xw0=xw0 + xw_off,
-                  solid_ext=se)
-        if k:
-            out, m = out
-            moms.append(m)
-        return out
-
-    interior = sub(slice(d, he - d), slice(1, wde - 1), d, 1)
-    top = sub(slice(0, 3 * d), slice(None), 0, 0)
-    bot = sub(slice(he - 3 * d, he), slice(None), he - 3 * d, 0)
-    left = sub(slice(d, he - d), slice(0, 3), d, 0)
-    right = sub(slice(d, he - d), slice(wde - 3, wde), d, wde - 3)
-
+        return run_extended(ext, d, y0=y0, xw0=xw0, solid_ext=solid_ext,
+                            **kw)
+    win = (..., slice(d, he - d), slice(1, wde - 1))
+    tile = run_extended_interior(
+        ext[win], d, y0=y0 + d, xw0=xw0 + 1,
+        solid=None if solid_ext is None else solid_ext[win], **kw)
+    pieces = run_extended_boundary(
+        boundary_slices(ext, d), d, y0=y0 + d, xw0=xw0 + 1,
+        solid=None if solid_ext is None else boundary_slices(solid_ext, d),
+        **kw)
+    if moments_every:
+        (tile, m), (pieces, mb) = tile, pieces
     out = torch.zeros_like(ext)
-    inner = slice(1, wde - 1)
-    out[..., d:2 * d, inner] = top[..., d:2 * d, inner]
-    out[..., he - 2 * d:he - d, inner] = bot[..., d:2 * d, inner]
-    mid = slice(2 * d, hl)             # shard rows [d, hl - d)
-    out[..., mid, 1:2] = left[..., d:hl - d, 1:2]
-    out[..., mid, 2:wdl] = interior[..., d:hl - d, 1:wdl - 1]
-    out[..., mid, wdl:wdl + 1] = right[..., d:hl - d, 1:2]
-    if k:
-        return out, functools.reduce(torch.add, moms)
-    return out
+    out[win] = compose_split(tile, pieces)
+    return (out, m + mb) if moments_every else out

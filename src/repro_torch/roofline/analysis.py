@@ -3,10 +3,15 @@ through device memory and over the links between devices, priced in
 seconds on a card's datasheet rates.
 
 The FHP half of ``repro/roofline/analysis.py``, with the same byte terms
-for the same arguments.  The reference prices a TPU; here the default
-:class:`HW` is the NVIDIA H100 SXM5 80GB at its 700 W power limit,
-from NVIDIA's datasheet.  The serve engine seeds its round-time model
-with :func:`sharded_fhp_traffic` (``CAServeEngine._modeled_round_s``).
+for the same arguments, and its ``roofline_terms``.  The reference prices
+a TPU; here the default :class:`HW` is the NVIDIA H100 SXM5 80GB at its
+700 W power limit, from NVIDIA's datasheet.  The serve engine seeds its
+round-time model with :func:`sharded_fhp_traffic`
+(``CAServeEngine._modeled_round_s``); the autotuner
+(``kernels.fhp_step.ops.autotune_launch``) prices the exchange with
+:func:`measured_exchange_latency`, which times the sharded path's ring
+between cards where there are two or more.  The reference's XLA-HLO
+parsers have no counterpart here.
 
 ``sharded_fhp_traffic`` prices one shard of ``(hl, wdl)`` words advanced
 ``depth`` local steps per halo-exchange round, executed as ceil(d/T)
@@ -30,6 +35,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class HW:
@@ -50,6 +57,76 @@ PLANE_BYTES = 8 * 4            # 8 uint32 bit-planes per word of 32 nodes
 DYN_PLANE_BYTES = 7 * 4        # the 7 dynamic planes (static-solid mode)
 WORD_NODES = 32
 EXCHANGE_LATENCY_S = 3e-6      # fallback cost per halo-exchange round
+
+# Measured exchange latency, filled lazily by ``measured_exchange_latency``
+# and keyed by the attached devices' fingerprint: the autotuner's search
+# calls the model thousands of times and must not re-run the probe, but a
+# process that sees other devices must not inherit a stale number.
+_MEASURED_EXCHANGE_LATENCY: Dict[tuple, float] = {}
+
+
+def _mesh_fingerprint() -> tuple:
+    """The attached devices' identity: backend, CUDA device count and
+    the first device's name."""
+    if torch.cuda.is_available():
+        return ("cuda", torch.cuda.device_count(),
+                torch.cuda.get_device_name(0))
+    return ("cpu", 0, "none")
+
+
+def measured_exchange_latency(refresh: bool = False) -> float:
+    """Seconds per halo-exchange round for the traffic model, measured
+    where there is a link to measure.
+
+    With two or more CUDA devices this times a ring of the sharded path's
+    ``_ppermute`` of a tiny buffer over a 1-D mesh of all of them --
+    warmed, best of 3 trials of 64 rounds, CUDA events -- and caches the
+    seconds a round under ``_mesh_fingerprint()``, so repeated calls do
+    not re-run it.  On the CPU or one card there is no link, and
+    ``EXCHANGE_LATENCY_S`` is returned unchanged (and cached)."""
+    key = _mesh_fingerprint()
+    if key in _MEASURED_EXCHANGE_LATENCY and not refresh:
+        return _MEASURED_EXCHANGE_LATENCY[key]
+    lat = EXCHANGE_LATENCY_S
+    if key[0] == "cuda" and key[1] >= 2:
+        from repro_torch.core.distributed import _ppermute, _ring
+
+        n, rounds = key[1], 64
+        devices = [[torch.device("cuda", i) for i in range(n)]]
+        parts = [[torch.zeros((8, 128), dtype=torch.float32, device=d)
+                  for d in devices[0]]]
+
+        def ring():
+            nonlocal parts
+            for _ in range(rounds):
+                parts = _ppermute(parts, 1, _ring(n, up=True), devices)
+
+        ring()                                   # warm
+        best = min(_timed(ring, devices[0]) for _ in range(3))
+        lat = max(best / rounds, 1e-8)
+    _MEASURED_EXCHANGE_LATENCY[key] = lat
+    return lat
+
+
+def _timed(fn, devices) -> float:
+    """Seconds ``fn()`` keeps the slowest of ``devices`` busy, from CUDA
+    events recorded on each device's current stream around it."""
+    def mark():
+        events = []
+        for d in devices:
+            with torch.cuda.device(d):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        return events
+
+    for d in devices:
+        torch.cuda.synchronize(d)
+    starts = mark()
+    fn()
+    ends = mark()
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return max(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e-3
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -260,3 +337,17 @@ def sharded_fhp_traffic(hl: int, wdl: int, *, depth: int, T: int,
         "overlap_speedup_modeled": serial_s / total_s,
     })
     return out
+
+
+def roofline_terms(flops: float, bytes_: float, coll_bytes: float,
+                   hw: HW = H100) -> Dict[str, float]:
+    """The three roofline times of a step on ``hw`` -- operations over the
+    peak rate, memory bytes over the memory rate, exchange bytes over the
+    link rate -- the one that bounds it, and that bound."""
+    t_c = flops / hw.peak_flops
+    t_m = bytes_ / hw.hbm_bw
+    t_x = coll_bytes / hw.ici_bw
+    dom = max(("compute", t_c), ("memory", t_m), ("collective", t_x),
+              key=lambda kv: kv[1])[0]
+    return {"compute_s": t_c, "memory_s": t_m, "collective_s": t_x,
+            "bound": dom, "step_s_lower_bound": max(t_c, t_m, t_x)}

@@ -163,3 +163,41 @@ def test_serve_engine_on_card_matches_cpu(cuda, mesh, tmp_path):
     for rid, job in host.jobs.items():
         assert (card.jobs[rid].result == job.result).all(), rid
         assert card.jobs[rid].frames == job.frames, rid
+
+
+def test_overlapped_runs_repeat_on_card(cuda):
+    # One placed state on a 2 x 2 mesh of slots on the card: the serial
+    # run (1 launch a shard a round) and three overlapped runs in a row (5,
+    # the interior ones on a side stream) give equal planes and moments.
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 8, 256, 64),
+                          dtype=torch.int32)
+    mesh = distributed.make_mesh((2, 2), ("data", "model"), cuda)
+    kw = dict(depth=8, steps_per_launch=8, p_force=0.05, moments_every=4)
+    serial, sharding = distributed.make_ensemble_run(mesh, 32, **kw)
+    overlapped, _ = distributed.make_ensemble_run(mesh, 32, overlap=True,
+                                                  **kw)
+    placed = sharding.place(words.to(cuda))
+    ops.LAUNCHES.clear()
+    want, wmom = serial(placed, 3)
+    assert ops.LAUNCHES["extended"] == 4 * 4
+    for _ in range(3):
+        ops.LAUNCHES.clear()
+        got, mom = overlapped(placed, 3)
+        assert ops.LAUNCHES["extended"] == 4 * 4 * 5
+        assert torch.equal(got.gather(), want.gather())
+        assert torch.equal(mom, wmom)
+
+
+def test_exchange_latency_probe_on_cards(cuda):
+    # With two or more cards the probe times the ring and caches it under
+    # the fingerprint; one card has no link to time.
+    from repro_torch.roofline import analysis
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    analysis._MEASURED_EXCHANGE_LATENCY.clear()
+    lat = analysis.measured_exchange_latency()
+    key = analysis._mesh_fingerprint()
+    assert key[:2] == ("cuda", torch.cuda.device_count())
+    assert analysis._MEASURED_EXCHANGE_LATENCY[key] == lat
+    assert 1e-8 <= lat < 1e-2
+    assert analysis.measured_exchange_latency() == lat
