@@ -107,11 +107,40 @@ no result line):
       results and frames bit-equal, the mesh engine through the kernel's
       extended-shard mode only.
 
+9. Poiseuille (``repro_torch.examples.poiseuille`` at its defaults: 64 x
+   512, 3000 steps, p_force 0.02) through the kernel
+   (``make_ensemble_run(None, ...)``, counts set to 0 before and read
+   after), bit-equal to ``bitplane.run_planes`` on the card after the warm
+   phase and at the end, the profile equal, R^2 > 0.9 and concave; prints
+   R^2, the curvature and both runs' ms;
+10. the LM serve path (``serve.ServeEngine``), which reaches no custom
+    kernel (plain PyTorch, as the reference's attention is plain jnp):
+    a. the repro-100m and gemma2-27b smoke configs in float32, built from
+       the same seeded numpy parameters on the card and on the CPU, 8
+       requests through both engines: greedy tokens equal, every logit
+       the engines saw within 1e-3, matmuls at "highest" precision;
+    b. internlm2-20b at its published width (d_model 6144, 48/8 heads,
+       d_ff 16384, vocab 92544), 4 slots, max_len 1024, 8 greedy requests
+       (prompts of 32-512 tokens from ``default_rng(7)``, 32 new tokens
+       each), first in float32 with the depth cut to 4 layers, then at
+       its published depth (48 layers) in bf16 with a bf16 cache, the
+       parameters drawn on the card in that dtype each time.  Every
+       request finishes; for two of them a teacher-forced ``forward``
+       over prompt + output has the decoded token as its argmax wherever
+       its top-2 margin is at least the tolerance, and the engine's logits
+       lie within it (float32: 1e-3; bf16: 1.0, twice the measured
+       difference of the same forward over a prefix and over the whole).
+       Prints parameter bytes, peak memory, prefill ms per prompt token,
+       decode ms per step, tokens/s, a step's byte bound (parameter bytes
+       / 3.35 TB/s) with its share, and a profile of three bf16 decode
+       steps (device busy share, kernels a step, the costliest kernels).
+
 Every entry's ``max_abs_err`` comes from its timed launch held against the
 plain version.
 
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
-The K1/K3/K4 entries add ``launches_serve`` (phase 8a's launches) and the
+The K1/K3/K4 entries add ``launches_serve`` (phase 8a's launches), K1 and
+K3 ``launches_poiseuille`` (phase 9's), and the
 K5 entry ``launches_overlap`` (phase 6's overlapped run),
 ``launches_serve_mesh`` (phase 8c's mesh engine), ``split_piece_ms``
 (each piece of the split round) and ``overlap_round`` (phase 7's
@@ -147,6 +176,20 @@ TILES = ((32, 32), (48, 32), (64, 32), (64, 64), (32, 48), (40, 48),
 # Phase 8: the serve path.
 SERVE_FRAME_EVERY, SERVE_CKPT_EVERY = 16, 4
 SERVE_MESH_HW, SERVE_MESH_STEPS = (1024, 8192), 32
+# Phase 9: the Poiseuille example at its defaults.
+POIS_HW, POIS_STEPS, POIS_P_FORCE = (64, 512), 3000, 0.02
+# Phase 10: the LM serve path.
+LM_SMOKE_ARCHS = ("repro-100m", "gemma2-27b")
+LM_SMOKE_ATOL = 1e-3        # float32 logits, card against CPU
+LM_ARCH, LM_SLOTS, LM_MAX_LEN = "internlm2-20b", 4, 1024
+LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW = 8, (32, 513), 32
+# Engine logits against a teacher-forced forward: float32 at full width
+# with the depth cut to LM_CHECK_LAYERS (the correctness check), then bf16
+# at full depth.  In bf16 the same forward over a prefix and over the
+# whole sequence already differ by ~0.5 at 48 layers of these random
+# weights (PERF.md §6): the bf16 tolerance is twice that.
+LM_CHECK_LAYERS, LM_FP32_ATOL = 4, 1e-3
+LM_BF16_ATOL = 1.0
 SOURCE = "src/repro_torch/kernels/fhp_step/csrc/fhp_step.cu"
 REPLACES = "src/repro/kernels/fhp_step/kernel.py:330"
 
@@ -1005,6 +1048,316 @@ def _serve_path(dev, card, out, main_s):
     return serve_modes, mmodes
 
 
+# -- phases 9 and 10 ----------------------------------------------------------
+
+def _poiseuille(dev, card):
+    """Phase 9: the Poiseuille example at its defaults through the kernel
+    (``make_ensemble_run(None, ...)``), held bit-equal to
+    ``bitplane.run_planes`` on the card after the warm phase and at the
+    end, with the example's fit and asserts.  Returns the kernel run's
+    launches by mode."""
+    from repro_torch import scenarios
+    from repro_torch.examples import poiseuille
+    from repro_torch.kernels.fhp_step import check
+    sc = scenarios.get("poiseuille", height=POIS_HW[0], width=POIS_HW[1],
+                       p_force=POIS_P_FORCE)
+    runs = {}
+    for plain in (False, True):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t = time.perf_counter()
+        res = poiseuille.simulate(sc, POIS_STEPS, dev, plain=plain)
+        torch.cuda.synchronize()
+        runs[plain] = (res, (time.perf_counter() - t) * 1e3, _counts())
+    (kwarm, kend, kprof), k_ms, (launches, modes) = runs[False]
+    (pwarm, pend, pprof), p_ms, (plain_launches, _) = runs[True]
+    if launches == 0 or plain_launches:
+        raise AssertionError(f"Poiseuille: {launches} kernel launches "
+                             f"through the entry point, {plain_launches} "
+                             f"in the plain run")
+    for name, a, b in (("after the warm phase", kwarm, pwarm),
+                       ("at the end", kend, pend)):
+        where = check.first_difference(a, b)
+        if where is not None:
+            raise AssertionError(f"Poiseuille {name}: the kernel run "
+                                 f"differs from run_planes first at {where}")
+    if not (kprof == pprof).all():
+        raise AssertionError("Poiseuille profiles differ")
+    r2, coef = poiseuille.fit(kprof)
+    if not (r2 > 0.9 and coef[0] < 0):
+        raise AssertionError(f"Poiseuille: R^2 {r2:.4f}, curvature "
+                             f"{coef[0]:.3e}")
+    print(f"[poiseuille] {card} | {POIS_HW[0]} x {POIS_HW[1]}, {POIS_STEPS} "
+          f"steps, p_force {POIS_P_FORCE}: R^2 = {r2:.4f}, curvature a = "
+          f"{coef[0]:.3e}; kernel run {k_ms:.1f} ms ({launches} launches, by "
+          f"mode {modes}), run_planes on the card {p_ms:.1f} ms; planes "
+          f"bit-equal after the warm phase and at the end")
+    return modes
+
+
+@contextlib.contextmanager
+def _recorded(module, name, calls, engine=None):
+    """While open, each call of ``module.name`` (an LM entry point the
+    engine calls) appends ``(tokens in, seconds to its device
+    synchronisation, logits on the host as float32, live slots' request
+    ids)`` to ``calls``."""
+    inner = getattr(module, name)
+
+    def wrapped(params, cfg, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = inner(params, cfg, *args, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        toks = (args[0]["tokens"].numel() if name == "prefill"
+                else args[1].numel())
+        rids = ([s.rid if s is not None else None for s in engine.slots]
+                if engine is not None else None)
+        calls.append((toks, dt, logits.float().cpu(), rids))
+        return logits, cache
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def _serve_reqs(vocab, n, lens, max_new, seed=7):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    out = []
+    for rid in range(n):
+        plen = int(rng.integers(*lens))
+        out.append(Request(rid=rid, prompt=rng.integers(
+            0, vocab, plen).astype(np.int32), max_new=max_new))
+    return out
+
+
+def _lm_smoke_check(dev, card):
+    """Phase 10, the check: smoke configs in float32 built from the same
+    seeded numpy parameters on the card and the CPU, the same 8 requests
+    through ``ServeEngine`` on both: equal greedy tokens, every logit the
+    engines saw within ``LM_SMOKE_ATOL``; matmuls at "highest" precision
+    (no TF32)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import init_params, lm, params_from_reference
+    from repro_torch.serve import ServeEngine, lm_engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    for arch in LM_SMOKE_ARCHS:
+        cfg = get_smoke(arch)
+        tree = lm.tree_map(lambda t: t.numpy(), init_params(cfg, seed=0))
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            eng = ServeEngine(params_from_reference(tree, cfg, device=d), cfg,
+                              batch_size=4, max_len=96, device=d)
+            for r in _serve_reqs(cfg.vocab, 8, (4, 24), 12):
+                eng.submit(r)
+            calls = []
+            with _recorded(lm_engine, "prefill", calls), \
+                    _recorded(lm_engine, "decode_step", calls):
+                done = eng.run_until_done()
+            res[d.type] = ({r.rid: r.out for r in done}, calls)
+        (gtok, gcalls), (ctok, ccalls) = res["cuda"], res["cpu"]
+        if len(gtok) != 8 or gtok != ctok:
+            raise AssertionError(f"{arch} smoke: card tokens {gtok} differ "
+                                 f"from the CPU's {ctok}")
+        err = max(float((a[2] - b[2]).abs().max())
+                  for a, b in zip(gcalls, ccalls))
+        if len(gcalls) != len(ccalls) or not err <= LM_SMOKE_ATOL:
+            raise AssertionError(f"{arch} smoke: logits differ by {err} "
+                                 f"(> {LM_SMOKE_ATOL})")
+        print(f"[lm] {card} | {arch} smoke (float32, matmul precision "
+              f"{torch.get_float32_matmul_precision()}, TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}): 8 requests, "
+              f"{sum(map(len, gtok.values()))} tokens equal on the card and "
+              f"the CPU; {len(gcalls)} prefill/decode calls, logits max abs "
+              f"difference {err:.3e} (<= {LM_SMOKE_ATOL})")
+
+
+def _teacher_forced(params, cfg, r, pre_row, dec, dev, tol, label, card):
+    """For served request ``r``: a teacher-forced ``forward`` over prompt +
+    output must have the decoded token as its argmax at every generated
+    position whose top-2 margin is at least ``tol``, and the engine's
+    logits there (its prefill row ``pre_row`` and its row of each decode
+    step in ``dec``) must lie within ``tol`` of forward's.  Also prints
+    the same positions' difference between forward over a prefix (prompt
+    + half the output) and forward over the whole: the rounding noise
+    of the compute dtype alone."""
+    import numpy as np
+    from repro_torch.models import forward
+    seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+    s0, n = len(r.prompt) - 1, len(r.out)
+
+    def logits(toks):
+        out, _ = forward(params, cfg, {"tokens": torch.as_tensor(
+            toks[None], dtype=torch.int64, device=dev)})
+        return out[0, s0:].float().cpu()
+
+    fl = logits(seq)                                    # (n, vocab)
+    floor = float((logits(seq[:s0 + 1 + n // 2]) - fl[:n // 2 + 1]).abs().max())
+    eng_l = torch.stack([pre_row] + [c[2][c[3].index(r.rid)] for c in dec
+                                     if r.rid in c[3]])
+    if eng_l.shape != fl.shape:
+        raise AssertionError(f"{label} request {r.rid}: {eng_l.shape[0]} "
+                             f"engine logit rows for {n} generated positions")
+    top2 = fl.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    arg, want = fl.argmax(dim=-1), torch.tensor(r.out)
+    bad = (arg != want) & (margin >= tol)
+    excused = int(((arg != want) & (margin < tol)).sum())
+    diff = (eng_l - fl).abs()
+    worst = diff.amax(dim=-1)
+    print(f"[lm] {card} | {label} request {r.rid} (prompt {len(r.prompt)}): "
+          f"teacher-forced forward over {len(seq)} tokens -- argmax equal to "
+          f"the decoded token at {int((arg == want).sum())} of {n} "
+          f"positions, {excused} more under the top-2 margin {tol}; engine "
+          f"logits against forward's: max abs difference "
+          f"{float(diff.max()):.3e} (at generated position "
+          f"{int(worst.argmax())}), mean {float(diff.mean()):.3e}, tolerance "
+          f"{tol}; forward over a prefix against the whole: {floor:.3e}; "
+          f"smallest top-2 margin {float(margin.min()):.4f}")
+    if bad.any() or not float(diff.max()) <= tol:
+        raise AssertionError(
+            f"{label} request {r.rid}: teacher-forced argmax differs at "
+            f"{bad.nonzero().flatten().tolist()} (margins >= {tol}); logits "
+            f"max abs difference {float(diff.max())} (> {tol}?)")
+
+
+def _lm_decode_profile(params, cfg, eng, label, card, steps=3):
+    """``steps`` batched decode steps on the engine's cache under
+    ``torch.profiler``: wall, device time of the kernels (the device's
+    busy share), kernel count and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step
+    toks = torch.zeros(eng.bs, dtype=torch.int64, device=eng.device)
+    pos = torch.full((eng.bs,), 600, dtype=torch.int64, device=eng.device)
+    decode_step(params, cfg, eng.cache, toks, pos)         # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            decode_step(params, cfg, eng.cache, toks, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) for e in rows)
+    n_k = sum(e.count for e in rows)
+    if not dev_us:
+        print(f"[lm-profile] {card} | {label}: the profiler showed no "
+              f"device time (not measured); wall {wall / steps * 1e3:.3f} "
+              f"ms a step")
+        return
+    top = sorted(rows, key=lambda e: -getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+    print(f"[lm-profile] {card} | {label}: {steps} decode steps, wall "
+          f"{wall / steps * 1e3:.3f} ms a step, device busy "
+          f"{dev_us / 1e3 / steps:.3f} ms a step "
+          f"({dev_us / 1e6 / wall:.4f} of the wall), {n_k / steps:.0f} "
+          f"kernels a step; most device time: " + "; ".join(
+              f"{e.key[:60]} x{e.count // steps} "
+              f"{getattr(e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0)) / 1e3 / steps:.3f} ms"
+              for e in top[:6]))
+
+
+def _lm_serve_run(dev, card, cfg, dtype, tol, label, profile=False):
+    """Phase 10b: ``cfg`` with parameters drawn on the card in ``dtype``,
+    served by ``ServeEngine`` (``LM_SLOTS`` slots, ``LM_MAX_LEN``, a cache
+    in ``dtype``) for ``LM_REQUESTS`` greedy requests; every request
+    finishes, and two of them pass ``_teacher_forced`` at ``tol``.
+    Returns the run's numbers."""
+    from repro_torch.models import init_params, lm, param_count
+    from repro_torch.serve import ServeEngine, lm_engine
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in lm.tree_leaves(params))
+    print(f"[lm] {card} | {label}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{lm.param_numel(params)} parameters (analytic, matrices only: "
+          f"{param_count(cfg)['total']}), {param_bytes} bytes in {dtype}, "
+          f"drawn on the card in {init_s:.2f} s")
+    eng = ServeEngine(params, cfg, batch_size=LM_SLOTS, max_len=LM_MAX_LEN,
+                      cache_dtype=dtype, device=dev)
+    reqs = _serve_reqs(cfg.vocab, LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW)
+    for r in reqs:
+        eng.submit(r)
+    pre, dec = [], []
+    with _recorded(lm_engine, "prefill", pre, eng), \
+            _recorded(lm_engine, "decode_step", dec, eng):
+        t = time.perf_counter()
+        done = eng.run_until_done()
+        wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(r.rid for r in done) != list(range(LM_REQUESTS)) or any(
+            len(r.out) != LM_MAX_NEW for r in done):
+        raise AssertionError(f"{label}: {len(done)} of {LM_REQUESTS} "
+                             f"requests finished")
+    n_tok = sum(len(r.out) for r in done)
+    pre_tok = sum(c[0] for c in pre)
+    pre_s = sum(c[1] for c in pre)
+    dec_ms = sorted(c[1] * 1e3 for c in dec)
+    bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    med = statistics.median(dec_ms)
+    print(f"[lm] {card} | {label} served {len(done)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}, {LM_MAX_NEW} new tokens each, "
+          f"{LM_SLOTS} slots, max_len {LM_MAX_LEN}, greedy) in {wall:.3f} s: "
+          f"{n_tok / wall:.2f} tokens/s; prefill {pre_s * 1e3:.1f} ms for "
+          f"{pre_tok} prompt tokens ({pre_s * 1e3 / pre_tok:.4f} ms a token, "
+          f"{len(pre)} calls); decode {len(dec)} steps, median "
+          f"{med:.3f} ms (least {dec_ms[0]:.3f}, most {dec_ms[-1]:.3f}); "
+          f"byte bound of a step (parameter bytes / {HBM_BYTES_PER_S:.3g} "
+          f"B/s) {bound_ms:.3f} ms, the median step at {bound_ms / med:.4f} "
+          f"of it; peak memory {peak} bytes")
+    if profile:
+        _lm_decode_profile(params, cfg, eng, label, card)
+    by_rid = {r.rid: r for r in done}
+    for rid in range(2):      # requests are prefilled in queue order
+        _teacher_forced(params, cfg, by_rid[rid], pre[rid][2][0], dec, dev,
+                        tol, label, card)
+    del params, eng
+    _free_memory()
+    return {"param_bytes": param_bytes, "peak_bytes": peak,
+            "decode_ms": med, "bound_ms": bound_ms,
+            "tokens_per_s": n_tok / wall}
+
+
+def _lm_full_width(dev, card):
+    """Phase 10b: ``LM_ARCH`` at its published width in float32 with its
+    depth cut to ``LM_CHECK_LAYERS`` (matmuls at "highest" precision;
+    tolerance ``LM_FP32_ATOL``), then at its published width and depth in
+    bf16 (tolerance ``LM_BF16_ATOL``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config(LM_ARCH)
+    cut = dataclasses.replace(full, n_layers=LM_CHECK_LAYERS, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    _lm_serve_run(dev, card, cut, torch.float32, LM_FP32_ATOL,
+                  f"{LM_ARCH} float32, {LM_CHECK_LAYERS} layers")
+    return _lm_serve_run(dev, card, full, torch.bfloat16, LM_BF16_ATOL,
+                         f"{LM_ARCH} bf16", profile=True)
+
+
+def _free_memory():
+    """Drop unreferenced tensors and return cached device memory."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1238,14 +1591,20 @@ def main() -> int:
     # -- 8. this slice: the serve path ----------------------------------------
     serve_modes, mesh_modes = _serve_path(dev, card, out, main_s)
     sharded[0]["launches_serve_mesh"] = mesh_modes["extended"]
+    # -- 9-10. this slice: Poiseuille through the kernel, the LM serve path --
+    pois_modes = _poiseuille(dev, card)
+    _lm_smoke_check(dev, card)
+    _lm_full_width(dev, card)
 
     entries = [
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],
                results["T=1"], card,
-               launches_serve=serve_modes["periodic"]),
+               launches_serve=serve_modes["periodic"],
+               launches_poiseuille=pois_modes["periodic"]),
         _entry("fhp_step K3 2-D tiles", "tiles", main_modes["periodic"],
                results[f"T={T_MAIN}"], card,
-               launches_serve=serve_modes["periodic"]),
+               launches_serve=serve_modes["periodic"],
+               launches_poiseuille=pois_modes["periodic"]),
         _entry("fhp_step K4 fused moments", "moments", main_modes["moments"],
                results[f"T={T_MAIN}"], card,
                launches_serve=serve_modes["moments"]),

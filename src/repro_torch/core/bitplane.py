@@ -1,4 +1,5 @@
-"""Multi-spin-coded (bit-plane) FHP state: 32 nodes per 32-bit word.
+"""Multi-spin-coded (bit-plane) FHP state and its plain stepper: 32 nodes
+per 32-bit word.
 
 Layout: ``planes`` is ``(..., n_planes, H, W // 32)`` ``torch.int32`` (the
 bit-view of the reference's uint32 words); bit ``b`` of word ``w`` in row
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import prng, rules
+from repro_torch.core import boolean, prng, rules
 
 WORD = 32
 
@@ -63,6 +64,72 @@ def shift_x(p: torch.Tensor, dx: int) -> torch.Tensor:
     if dx == -1:
         return prng.srl(p, 1) | (torch.roll(p, -1, dims=-1) << (WORD - 1))
     raise ValueError(dx)
+
+
+def stream_planes(planes: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """Motion step on packed planes (periodic both axes; walls via collide).
+
+    ``row0`` is the global row index of local row 0: the triangular
+    lattice's x-offsets follow the *global* row parity, so a shard of a
+    larger lattice passes its offset."""
+    h = planes.shape[-2]
+    even = (((torch.arange(h, device=planes.device) + int(row0)) & 1)
+            == 0)[:, None]                       # (H, 1) source parity
+    out = [None] * 8
+    for k in range(rules.N_DIR):
+        p = planes[..., k, :, :]
+        (dx0, dy), (dx1, _) = rules.OFFSETS[k]
+        if dx0 == dx1:
+            moved = shift_x(p, dx0)
+        else:
+            moved = torch.where(even, shift_x(p, dx0), shift_x(p, dx1))
+        out[k] = torch.roll(moved, dy, dims=-2) if dy else moved
+    out[rules.REST_BIT] = planes[..., rules.REST_BIT, :, :]
+    out[rules.SOLID_BIT] = planes[..., rules.SOLID_BIT, :, :]
+    return torch.stack(out, dim=-3)
+
+
+def _as_plane_list(planes: torch.Tensor):
+    """Split the plane axis (-3) into a list, keeping batch axes."""
+    return [planes[..., k, :, :] for k in range(8)]
+
+
+def collide(planes: torch.Tensor, chi: torch.Tensor,
+            variant: str = "fhp2") -> torch.Tensor:
+    return torch.stack(boolean.collide_planes(_as_plane_list(planes), chi,
+                                              variant), dim=-3)
+
+
+def step_planes(planes: torch.Tensor, t: int, p_force: float = 0.0,
+                y0: int = 0, xw0: int = 0, *, chi=None, accel=None,
+                variant: str = "fhp2") -> torch.Tensor:
+    """One fused FHP step (stream -> collide -> force) on packed planes.
+
+    ``y0``/``xw0`` are the global coordinates of local word (0, 0); they
+    offset both the RNG counters and the row parity, so a shard reproduces
+    the global lattice bit for bit.  ``chi``/``accel`` override the
+    counter RNG."""
+    shape_words = planes.shape[-2:]
+    s = stream_planes(planes, row0=y0)
+    if chi is None:
+        chi = prng.chirality_words(shape_words, t, y0=y0, xw0=xw0,
+                                   device=planes.device)
+    s = collide(s, chi, variant)
+    if p_force or accel is not None:
+        if accel is None:
+            accel = prng.bernoulli_words(shape_words, t, p_force, y0=y0,
+                                         xw0=xw0, device=planes.device)
+        s = torch.stack(boolean.force_planes(_as_plane_list(s), accel),
+                        dim=-3)
+    return s
+
+
+def run_planes(planes: torch.Tensor, steps: int, p_force: float = 0.0,
+               t0: int = 0) -> torch.Tensor:
+    """Advance ``steps`` fhp2 steps from step counter ``t0``."""
+    for i in range(int(steps)):
+        planes = step_planes(planes, t0 + i, p_force)
+    return planes
 
 
 def _pop_sum(p: torch.Tensor) -> torch.Tensor:

@@ -73,6 +73,14 @@ def step_bytes(state: torch.Tensor, t: int, p_force: float = 0.0,
     return s
 
 
+def run_bytes(state: torch.Tensor, steps: int, p_force: float = 0.0,
+              t0: int = 0) -> torch.Tensor:
+    """Advance ``steps`` time steps from step counter ``t0``."""
+    for i in range(int(steps)):
+        state = step_bytes(state, t0 + i, p_force)
+    return state
+
+
 # ---------------------------------------------------------------------------
 # Initialisation and observables
 # ---------------------------------------------------------------------------
@@ -114,3 +122,12 @@ def momentum(state: torch.Tensor):
         px2 = px2 + b * int(rules.CX2[i])
         py = py + b * int(rules.CY[i])
     return px2, py
+
+
+def velocity_profile(state: torch.Tensor) -> torch.Tensor:
+    """Mean x-velocity per row: <px>/<mass> with px = px2/2 (fluid rows)."""
+    px2, _ = momentum(state)
+    n = density(state)
+    mean_p = px2.to(torch.float32).mean(dim=-1) / 2.0
+    mean_n = torch.clamp(n.to(torch.float32).mean(dim=-1), min=1e-9)
+    return mean_p / mean_n

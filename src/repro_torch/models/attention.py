@@ -1,0 +1,215 @@
+"""Attention blocks: GQA with bias / qk-norm / softcap / sliding window /
+padded heads, as plain PyTorch.
+
+Training / prefill attention is *chunked* (online softmax over KV blocks):
+peak memory is O(S * block) instead of O(S^2).  Decode takes the simple
+full-cache path (the score tensor has a single query position) and writes
+each row's new K/V into the cache in place.  Scores are computed in fp32
+from the compute-dtype operands, as the reference's
+``preferred_element_type=float32`` does; no fused attention call is used,
+since the softcap and the per-row decode masks must stay the reference's.
+
+MLA (DeepSeek's latent attention) is not ported yet (ROADMAP §1, item
+11b).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common as cm
+
+NEG = -1e30
+PAD_POSITION = 2 ** 30      # position of padded KV slots (always masked)
+
+
+def n_heads_eff(cfg) -> int:
+    """Effective (possibly padded) q-head count."""
+    return max(cfg.pad_heads, cfg.n_heads) if cfg.pad_heads else cfg.n_heads
+
+
+def _head_mask(cfg, dtype, device=None):
+    """(H_eff,) mask that zeroes padded dummy heads.
+
+    Dummy heads are distributed per KV group (the (B,S,KV,G,hd) reshape
+    assigns head h to group h // (H_eff/KV), so tail-padding would
+    reshuffle real heads across groups)."""
+    he = n_heads_eff(cfg)
+    if he == cfg.n_heads:
+        return None
+    kv = cfg.n_kv_heads
+    if he % kv or cfg.n_heads % kv:
+        raise ValueError(f"pad_heads {he} and n_heads {cfg.n_heads} must "
+                         f"be multiples of n_kv_heads {kv}")
+    g_pad, g_real = he // kv, cfg.n_heads // kv
+    return ((torch.arange(he, device=device) % g_pad) < g_real).to(dtype)
+
+
+def init_attn(init: cm.Init, cfg):
+    d, kv, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
+    h = n_heads_eff(cfg)
+    p = {
+        "wq": init.normal((d, h, hd)),
+        "wk": init.normal((d, kv, hd)),
+        "wv": init.normal((d, kv, hd)),
+        "wo": init.normal((h, hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = init.zeros((h, hd))
+        p["bk"] = init.zeros((kv, hd))
+        p["bv"] = init.zeros((kv, hd))
+    if cfg.qk_norm:
+        p["qn"] = init.zeros((hd,))
+        p["kn"] = init.zeros((hd,))
+    return p
+
+
+def _qkv(p, x, cfg, positions):
+    """Project to q (B,S,H,hd) and k/v (B,S,KV,hd), with bias/qk-norm/rope."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if "qn" in p:
+        q = cm.rms_norm(q, p["qn"], cfg.norm_eps)
+        k = cm.rms_norm(k, p["kn"], cfg.norm_eps)
+    q = cm.apply_rope(q, positions, cfg.rope_frac, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_frac, cfg.rope_theta)
+    return q, k, v
+
+
+def _scores(qg, k):
+    """(B,S,KV,G,T) fp32 scores of grouped queries against keys, both in
+    the compute dtype (the products are exact in fp32)."""
+    return torch.einsum("bskgh,btkh->bskgt", qg.to(torch.float32),
+                        k.to(torch.float32))
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      cap: float = 0.0, bk: int = 1024,
+                      kv_positions=None, q_positions=None):
+    """Attention as an online softmax over KV chunks.
+
+    q: (B, S, H, hd);  k, v: (B, T, KV, hd) with H % KV == 0.
+    Returns (B, S, H, hd) in q.dtype.
+    """
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    g = h // kvh
+    bk = min(bk, t)
+    t_real = t
+    pad = (-t) % bk
+    dev = q.device
+    if pad:  # pad KV to a block multiple; padded slots are masked out below
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        t = t + pad
+    nc = t // bk
+    qg = q.reshape(b, s, kvh, g, hd)
+    scale = hd ** -0.5
+    if q_positions is None:
+        q_positions = torch.arange(s, device=dev)
+    qpos = q_positions.to(torch.int32)
+    if kv_positions is None:
+        kv_positions = torch.arange(t, device=dev)
+    elif pad:
+        kv_positions = torch.cat([kv_positions.to(dev), torch.full(
+            (pad,), PAD_POSITION, dtype=kv_positions.dtype, device=dev)])
+    kpos_all = kv_positions.to(torch.int32).reshape(nc, bk)
+    kvalid_all = (torch.arange(t, device=dev) < t_real).reshape(nc, bk)
+
+    m = torch.full((b, s, kvh, g), NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, s, kvh, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, s, kvh, g, hdv), dtype=torch.float32, device=dev)
+    for c in range(nc):
+        kc, vc = k[:, c * bk:(c + 1) * bk], v[:, c * bk:(c + 1) * bk]
+        kp, kva = kpos_all[c], kvalid_all[c]
+        sc = _scores(qg, kc) * scale
+        if cap:
+            sc = cm.softcap(sc, cap)
+        mask = kva[None, :].expand(s, bk)
+        if causal:
+            mask = mask & (qpos[:, None] >= kp[None, :])
+        if window:
+            mask = mask & (kp[None, :] > (qpos[:, None] - window))
+        sc = torch.where(mask[None, :, None, None, :], sc,
+                         torch.full((), NEG, dtype=sc.dtype, device=dev))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(sc - m_new[..., None])
+        l = l * alpha + pr.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bskgt,btkh->bskgh", pr.to(q.dtype).to(torch.float32),
+            vc.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, s, h, hdv).to(q.dtype)
+
+
+def attn_block(p, x, cfg, *, positions, window=0):
+    """Causal attention sub-block (projections + chunked attention + out)."""
+    q, k, v = _qkv(p, x, cfg, positions=positions)
+    o = chunked_attention(q, k, v, causal=True, window=window,
+                          cap=cfg.attn_softcap)
+    hm = _head_mask(cfg, o.dtype, o.device)
+    if hm is not None:
+        o = o * hm[None, None, :, None]
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Decode path (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def pos_vec(pos, b: int, device) -> torch.Tensor:
+    """Normalise scalar-or-(B,) decode positions to an int64 (B,) vector."""
+    pv = torch.as_tensor(pos, device=device).to(torch.int64)
+    return pv.expand(b) if pv.dim() == 0 else pv
+
+
+def attn_decode(p, x, cfg, cache, pos, *, window=0):
+    """x: (B, 1, D); cache: {"k","v"}: (B, T, KV, hd).  Returns (out, cache).
+
+    ``pos`` is a scalar or per-row (B,) vector (continuous batching: slots
+    may be at different depths).  The new K/V is written at each row's own
+    position, in place: the returned cache is the one passed in."""
+    b = x.shape[0]
+    pv = pos_vec(pos, b, x.device)
+    q, k1, v1 = _qkv(p, x, cfg, positions=pv[:, None])
+    rows = torch.arange(b, device=x.device)
+    k, v = cache["k"], cache["v"]
+    k[rows, pv] = k1[:, 0].to(k.dtype)
+    v[rows, pv] = v1[:, 0].to(v.dtype)
+    t = k.shape[1]
+    kpos = torch.arange(t, device=x.device)
+    mask = kpos[None, :] <= pv[:, None]
+    if window:
+        mask = mask & (kpos[None, :] > (pv[:, None] - window))
+    _, _, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, hd)
+    sc = _scores(qg, k.to(q.dtype)) * (hd ** -0.5)
+    if cfg.attn_softcap:
+        sc = cm.softcap(sc, cfg.attn_softcap)
+    sc = torch.where(mask[:, None, None, None, :], sc,
+                     torch.full((), NEG, dtype=sc.dtype, device=x.device))
+    pr = torch.softmax(sc, dim=-1).to(q.dtype)
+    o = torch.einsum("bskgt,btkh->bskgh", pr, v.to(q.dtype))
+    o = o.reshape(b, 1, h, hd)
+    hm = _head_mask(cfg, o.dtype, o.device)
+    if hm is not None:
+        o = o * hm[None, None, :, None]
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def init_decode_cache(dtype, cfg, batch: int, max_len: int, device="cpu"):
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    shape = (batch, max_len, kv, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

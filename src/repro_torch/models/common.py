@@ -1,0 +1,129 @@
+"""Shared model building blocks: a seeded initializer, norms, rotary
+embeddings and numeric helpers, as plain functions on tensors.
+
+Parameters are nested dicts of tensors with the reference's leaf names
+and layouts (``repro.models``), so a reference tree carries over leaf for
+leaf (``models.convert``).  There are no logical sharding axes: the port
+runs a model on one device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Init:
+    """Seeded initializer: one ``torch.Generator`` on the target device
+    draws every leaf in order, directly in ``dtype`` (a 20B-parameter model
+    is never materialised in fp32)."""
+
+    def __init__(self, seed: int, dtype=torch.float32, device="cpu"):
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(int(seed))
+
+    def normal(self, shape, scale=0.02):
+        v = torch.randn(tuple(shape), generator=self.gen, dtype=self.dtype,
+                        device=self.device)
+        return v.mul_(scale)
+
+    def zeros(self, shape):
+        return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
+
+    def ones(self, shape):
+        return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+
+
+class StackedInit(Init):
+    """Init that prepends a ``(layers,)`` dim to every leaf it draws."""
+
+    def __init__(self, parent: Init, n: int):
+        self.dtype, self.device, self.gen = (parent.dtype, parent.device,
+                                             parent.gen)
+        self.n = n
+
+    def normal(self, shape, scale=0.02):
+        return super().normal((self.n,) + tuple(shape), scale)
+
+    def zeros(self, shape):
+        return super().zeros((self.n,) + tuple(shape))
+
+    def ones(self, shape):
+        return super().ones((self.n,) + tuple(shape))
+
+
+# ---------------------------------------------------------------------------
+# Norms (computed in fp32, cast back)
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps=1e-5):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + weight.to(torch.float32))).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def apply_norm(x, p, kind: str, eps: float):
+    if kind == "layer":
+        return layer_norm(x, p["w"], p["b"], eps)
+    return rms_norm(x, p["w"], eps)
+
+
+def init_norm(init: Init, d: int, kind: str):
+    if kind == "layer":
+        return {"w": init.ones((d,)), "b": init.zeros((d,))}
+    return {"w": init.zeros((d,))}  # rms stored as (1 + w)
+
+
+def softcap(x, cap: float):
+    """Gemma-2 style logit soft-capping: cap * tanh(x / cap)."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (partial fraction supported)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(hd: int, frac: float, theta: float, device=None):
+    """Inverse frequencies for the rotated sub-dimension (rot_dim//2,)."""
+    rot = int(hd * frac) // 2 * 2
+    inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float64) / rot))
+    return torch.tensor(inv, dtype=torch.float32, device=device), rot
+
+
+def apply_rope(x, positions, frac=1.0, theta=10000.0):
+    """x: (..., S, n_heads, hd); positions: broadcastable to (..., S).
+
+    Half-split rotation (not interleaved) of the leading ``rot`` dims."""
+    hd = x.shape[-1]
+    inv, rot = rope_frequencies(hd, frac, theta, x.device)
+    if rot == 0:
+        return x
+    ang = positions[..., None].to(torch.float32) * inv   # (..., S, rot/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.cat([o1.to(x.dtype), o2.to(x.dtype), xp], dim=-1)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def cdtype(cfg) -> torch.dtype:
+    return cfg.compute_dtype

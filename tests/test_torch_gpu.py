@@ -201,3 +201,57 @@ def test_exchange_latency_probe_on_cards(cuda):
     assert analysis._MEASURED_EXCHANGE_LATENCY[key] == lat
     assert 1e-8 <= lat < 1e-2
     assert analysis.measured_exchange_latency() == lat
+
+
+def test_poiseuille_kernel_matches_run_planes_on_card(cuda):
+    # The Poiseuille example's run through the kernel against the port's
+    # run_planes on the card: planes after the warm phase and at the end,
+    # and the profile, equal.
+    from repro_torch import scenarios
+    from repro_torch.examples import poiseuille
+    sc = scenarios.get("poiseuille", height=32, width=256, p_force=0.05)
+    ops.LAUNCHES.clear()
+    warm, end, prof = poiseuille.simulate(sc, 400, cuda)
+    assert ops.LAUNCHES["periodic"] == ops.launches_total() > 0
+    pwarm, pend, pprof = poiseuille.simulate(sc, 400, cuda, plain=True)
+    assert torch.equal(warm, pwarm) and torch.equal(end, pend)
+    assert (prof == pprof).all()
+
+
+@pytest.mark.parametrize("arch", ["repro-100m", "gemma2-27b"])
+def test_smoke_lm_on_card_matches_cpu(cuda, arch):
+    # The same seeded float32 smoke model on the card and on the CPU, the
+    # same requests through ServeEngine: equal greedy tokens; prefill and
+    # decode logits within 1e-3 at "highest" matmul precision (no TF32).
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import decode_step, init_params, lm, prefill
+    from repro_torch.serve import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_smoke(arch)
+    host = init_params(cfg, seed=0)
+    card = lm.tree_map(lambda t: t.to(cuda), host)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(4, 24, 6)]
+    outs = []
+    for params, device in ((card, cuda), (host, torch.device("cpu"))):
+        eng = ServeEngine(params, cfg, batch_size=4, max_len=64,
+                          device=device)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new=8))
+        outs.append({r.rid: r.out for r in eng.run_until_done()})
+    assert len(outs[0]) == 6 and outs[0] == outs[1]
+    toks = torch.as_tensor(np.stack([prompts[0][:4], prompts[1][:4]]))
+    (cl, cc), (hl, hc) = (prefill(p, cfg, {"tokens": toks.to(d)}, 16,
+                                  torch.float32)
+                          for p, d in ((card, cuda), (host, "cpu")))
+    assert (cl.cpu() - hl).abs().max() <= 1e-3
+    pos, tok = torch.tensor([4, 2]), torch.tensor([1, 2])
+    for _ in range(3):
+        cl, _ = decode_step(card, cfg, cc, tok.to(cuda), pos.to(cuda))
+        hl, _ = decode_step(host, cfg, hc, tok, pos)
+        assert (cl.cpu() - hl).abs().max() <= 1e-3
+        tok, pos = hl.argmax(-1), pos + 1
