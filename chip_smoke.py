@@ -114,11 +114,13 @@ no result line):
    phase and at the end, the profile equal, R^2 > 0.9 and concave; prints
    R^2, the curvature and both runs' ms;
 10. the LM serve path (``serve.ServeEngine``), which reaches no custom
-    kernel (plain PyTorch, as the reference's attention is plain jnp):
-    a. the repro-100m and gemma2-27b smoke configs in float32, built from
-       the same seeded numpy parameters on the card and on the CPU, 8
-       requests through both engines: greedy tokens equal, every logit
-       the engines saw within 1e-3, matmuls at "highest" precision;
+    kernel (plain PyTorch, as the reference's attention, experts and SSD
+    are plain jnp):
+    a. the smoke configs of repro-100m, gemma2-27b, deepseek-v3-671b,
+       llama4-scout-17b-a16e, mamba2-2.7b and zamba2-2.7b in float32,
+       built from the same seeded numpy parameters on the card and on the
+       CPU, 8 requests through both engines: greedy tokens equal, every
+       logit the engines saw within 1e-3, matmuls at "highest" precision;
     b. internlm2-20b at its published width (d_model 6144, 48/8 heads,
        d_ff 16384, vocab 92544), 4 slots, max_len 1024, 8 greedy requests
        (prompts of 32-512 tokens from ``default_rng(7)``, 32 new tokens
@@ -134,6 +136,21 @@ no result line):
        decode ms per step, tokens/s, a step's byte bound (parameter bytes
        / 3.35 TB/s) with its share, and a profile of three bf16 decode
        steps (device busy share, kernels a step, the costliest kernels).
+11. the experts/MLA and SSM/hybrid families at their published widths,
+    with 10b's traffic and numbers: deepseek-v3-671b (MLA, 256 experts
+    top-8 + 1 shared) in float32 cut to 2 layers (1 dense) at the
+    no-drop capacity factor n_experts / top_k, against a teacher-forced
+    forward at 1e-3 on its two shortest requests, then in bf16 at 5
+    layers (the 3 dense-prefix layers, 2 MoE) at the published capacity
+    factor, whose prefill logits must equal a forward over the same
+    prompt within twice a measured floor (forward over the prompt twice,
+    and over the prompt + k generated tokens at equal capacity);
+    llama4-scout-17b-a16e in float32 cut to 2 layers, no-drop, at 1e-3;
+    mamba2-2.7b and zamba2-2.7b at full depth in float32 at 1e-3 (the
+    teacher-forced sequence right-padded to the SSD chunk), then in bf16.
+    Each bf16 run prints a profile of three decode steps; a step's byte
+    bound counts every parameter it reads (every expert, not the MTP
+    leaves).
 
 Every entry's ``max_abs_err`` comes from its timed launch held against the
 plain version.
@@ -179,7 +196,8 @@ SERVE_MESH_HW, SERVE_MESH_STEPS = (1024, 8192), 32
 # Phase 9: the Poiseuille example at its defaults.
 POIS_HW, POIS_STEPS, POIS_P_FORCE = (64, 512), 3000, 0.02
 # Phase 10: the LM serve path.
-LM_SMOKE_ARCHS = ("repro-100m", "gemma2-27b")
+LM_SMOKE_ARCHS = ("repro-100m", "gemma2-27b", "deepseek-v3-671b",
+                  "llama4-scout-17b-a16e", "mamba2-2.7b", "zamba2-2.7b")
 LM_SMOKE_ATOL = 1e-3        # float32 logits, card against CPU
 LM_ARCH, LM_SLOTS, LM_MAX_LEN = "internlm2-20b", 4, 1024
 LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW = 8, (32, 513), 32
@@ -190,6 +208,20 @@ LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW = 8, (32, 513), 32
 # weights (PERF.md §6): the bf16 tolerance is twice that.
 LM_CHECK_LAYERS, LM_FP32_ATOL = 4, 1e-3
 LM_BF16_ATOL = 1.0
+# Phase 11: the experts/MLA and SSM/hybrid families at published width,
+# phase 10b's traffic.  Float32 runs (the teacher-forced check at
+# LM_FP32_ATOL): deepseek-v3 cut to DS_CHECK_LAYERS (its first layer
+# dense) and llama4-scout to SCOUT_CHECK_LAYERS, each at the capacity
+# factor n_experts / top_k, under which no assignment is dropped; mamba2
+# and zamba2 at full depth.  deepseek-v3's forward buffers (E, C, D) are
+# float32 and C is the whole sequence at that factor (~4 GB each at
+# C = 544 beside 58.5 GB of parameters), so its check takes the two
+# shortest prompts.  Bf16 runs: deepseek-v3 at DS_BF16_LAYERS (its three
+# dense-prefix layers and two MoE layers, published capacity factor),
+# mamba2 and zamba2 at full depth.
+DS_CHECK_LAYERS, DS_CHECK_DENSE = 2, 1
+DS_BF16_LAYERS = 5
+SCOUT_CHECK_LAYERS = 2
 SOURCE = "src/repro_torch/kernels/fhp_step/csrc/fhp_step.cu"
 REPLACES = "src/repro/kernels/fhp_step/kernel.py:330"
 
@@ -1148,7 +1180,8 @@ def _lm_smoke_check(dev, card):
     torch.set_float32_matmul_precision("highest")
     for arch in LM_SMOKE_ARCHS:
         cfg = get_smoke(arch)
-        tree = lm.tree_map(lambda t: t.numpy(), init_params(cfg, seed=0))
+        tree = lm.tree_map(lambda t: t.numpy(),
+                           init_params(cfg, seed=0, device="cpu"))
         res = {}
         for d in (dev, torch.device("cpu")):
             eng = ServeEngine(params_from_reference(tree, cfg, device=d), cfg,
@@ -1177,6 +1210,19 @@ def _lm_smoke_check(dev, card):
               f"difference {err:.3e} (<= {LM_SMOKE_ATOL})")
 
 
+def _forward_logits(params, cfg, toks, dev, start=0):
+    """``forward``'s logits rows ``start:len(toks)`` of one sequence, as
+    float32 on the host; an SSM or hybrid sequence is right-padded to its
+    chunk first (the model is causal: the real rows are unaffected)."""
+    import numpy as np
+    from repro_torch.models import forward
+    n = len(toks)
+    pad = (-n) % cfg.ssm.chunk if cfg.ssm else 0
+    out, _ = forward(params, cfg, {"tokens": torch.as_tensor(
+        np.pad(toks, (0, pad))[None], dtype=torch.int64, device=dev)})
+    return out[0, start:n].float().cpu()
+
+
 def _teacher_forced(params, cfg, r, pre_row, dec, dev, tol, label, card):
     """For served request ``r``: a teacher-forced ``forward`` over prompt +
     output must have the decoded token as its argmax at every generated
@@ -1187,14 +1233,11 @@ def _teacher_forced(params, cfg, r, pre_row, dec, dev, tol, label, card):
     + half the output) and forward over the whole: the rounding noise
     of the compute dtype alone."""
     import numpy as np
-    from repro_torch.models import forward
     seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
     s0, n = len(r.prompt) - 1, len(r.out)
 
     def logits(toks):
-        out, _ = forward(params, cfg, {"tokens": torch.as_tensor(
-            toks[None], dtype=torch.int64, device=dev)})
-        return out[0, s0:].float().cpu()
+        return _forward_logits(params, cfg, toks, dev, s0)
 
     fl = logits(seq)                                    # (n, vocab)
     floor = float((logits(seq[:s0 + 1 + n // 2]) - fl[:n // 2 + 1]).abs().max())
@@ -1267,11 +1310,38 @@ def _lm_decode_profile(params, cfg, eng, label, card, steps=3):
               for e in top[:6]))
 
 
-def _lm_serve_run(dev, card, cfg, dtype, tol, label, profile=False):
-    """Phase 10b: ``cfg`` with parameters drawn on the card in ``dtype``,
-    served by ``ServeEngine`` (``LM_SLOTS`` slots, ``LM_MAX_LEN``, a cache
-    in ``dtype``) for ``LM_REQUESTS`` greedy requests; every request
-    finishes, and two of them pass ``_teacher_forced`` at ``tol``.
+def _describe(cfg) -> str:
+    """The width of ``cfg``'s family-specific parts, for the run lines."""
+    parts = []
+    if cfg.mla:
+        m = cfg.mla
+        parts.append(f"MLA q_lora {m.q_lora}, kv_lora {m.kv_lora}, rope "
+                     f"{m.rope_dim}, nope {m.nope_dim}, v {m.v_dim}")
+    if cfg.moe:
+        e = cfg.moe
+        parts.append(f"{e.n_experts} experts top-{e.top_k} + {e.n_shared} "
+                     f"shared, d_ff_expert {e.d_ff_expert}, first_dense "
+                     f"{e.first_dense}, capacity factor {e.capacity_factor}")
+    if cfg.ssm:
+        m = cfg.ssm
+        parts.append(f"SSD d_state {m.d_state}, head_dim {m.head_dim}, "
+                     f"expand {m.expand}, chunk {m.chunk}")
+    if cfg.shared_attn_period:
+        parts.append(f"{cfg.n_shared_blocks} shared blocks every "
+                     f"{cfg.shared_attn_period} layers")
+    return "; ".join(parts)
+
+
+def _lm_serve_run(dev, card, cfg, dtype, label, *, tol=None,
+                  check_rids=(0, 1), prefill_check=False, profile=False):
+    """Phases 10b and 11: ``cfg`` with parameters drawn on the card in
+    ``dtype``, served by ``ServeEngine`` (``LM_SLOTS`` slots,
+    ``LM_MAX_LEN``, a cache in ``dtype``) for ``LM_REQUESTS`` greedy
+    requests; every request finishes.  With ``tol``, requests
+    ``check_rids`` pass ``_teacher_forced`` at it; with
+    ``prefill_check``, their prefill logits pass
+    ``_prefill_against_forward``.  The step's byte bound counts every
+    parameter the decode step reads (every expert; not the MTP leaves).
     Returns the run's numbers."""
     from repro_torch.models import init_params, lm, param_count
     from repro_torch.serve import ServeEngine, lm_engine
@@ -1283,12 +1353,18 @@ def _lm_serve_run(dev, card, cfg, dtype, tol, label, profile=False):
     init_s = time.perf_counter() - t
     param_bytes = sum(p.numel() * p.element_size()
                       for p in lm.tree_leaves(params))
+    read_bytes = sum(p.numel() * p.element_size()
+                     for p in lm.tree_leaves({k: v for k, v in params.items()
+                                              if k != "mtp"}))
+    extra = _describe(cfg)
     print(f"[lm] {card} | {label}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
-          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          f"{'; ' + extra if extra else ''}: "
           f"{lm.param_numel(params)} parameters (analytic, matrices only: "
-          f"{param_count(cfg)['total']}), {param_bytes} bytes in {dtype}, "
-          f"drawn on the card in {init_s:.2f} s")
+          f"{param_count(cfg)['total']}), {param_bytes} bytes in {dtype} "
+          f"({read_bytes} read by a decode step), drawn on the card in "
+          f"{init_s:.2f} s")
     eng = ServeEngine(params, cfg, batch_size=LM_SLOTS, max_len=LM_MAX_LEN,
                       cache_dtype=dtype, device=dev)
     reqs = _serve_reqs(cfg.vocab, LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW)
@@ -1309,7 +1385,7 @@ def _lm_serve_run(dev, card, cfg, dtype, tol, label, profile=False):
     pre_tok = sum(c[0] for c in pre)
     pre_s = sum(c[1] for c in pre)
     dec_ms = sorted(c[1] * 1e3 for c in dec)
-    bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
     med = statistics.median(dec_ms)
     print(f"[lm] {card} | {label} served {len(done)} requests (prompts "
           f"{[len(r.prompt) for r in reqs]}, {LM_MAX_NEW} new tokens each, "
@@ -1318,20 +1394,69 @@ def _lm_serve_run(dev, card, cfg, dtype, tol, label, profile=False):
           f"{pre_tok} prompt tokens ({pre_s * 1e3 / pre_tok:.4f} ms a token, "
           f"{len(pre)} calls); decode {len(dec)} steps, median "
           f"{med:.3f} ms (least {dec_ms[0]:.3f}, most {dec_ms[-1]:.3f}); "
-          f"byte bound of a step (parameter bytes / {HBM_BYTES_PER_S:.3g} "
-          f"B/s) {bound_ms:.3f} ms, the median step at {bound_ms / med:.4f} "
-          f"of it; peak memory {peak} bytes")
+          f"byte bound of a step (bytes a step reads / "
+          f"{HBM_BYTES_PER_S:.3g} B/s) {bound_ms:.3f} ms, the median step "
+          f"at {bound_ms / med:.4f} of it; peak memory {peak} bytes")
     if profile:
         _lm_decode_profile(params, cfg, eng, label, card)
     by_rid = {r.rid: r for r in done}
-    for rid in range(2):      # requests are prefilled in queue order
-        _teacher_forced(params, cfg, by_rid[rid], pre[rid][2][0], dec, dev,
-                        tol, label, card)
+    rows = {rid: pre[rid][2][0] for rid in check_rids}   # queue order
+    if tol is not None:
+        for rid in check_rids:
+            _teacher_forced(params, cfg, by_rid[rid], rows[rid], dec, dev,
+                            tol, label, card)
+    if prefill_check:
+        _prefill_against_forward(params, cfg, [by_rid[i] for i in check_rids],
+                                 rows, dev, label, card)
     del params, eng
     _free_memory()
-    return {"param_bytes": param_bytes, "peak_bytes": peak,
-            "decode_ms": med, "bound_ms": bound_ms,
-            "tokens_per_s": n_tok / wall}
+    return {"param_bytes": param_bytes, "read_bytes": read_bytes,
+            "peak_bytes": peak, "decode_ms": med, "bound_ms": bound_ms,
+            "tokens_per_s": n_tok / wall,
+            "prefill_ms_per_token": pre_s * 1e3 / pre_tok}
+
+
+def _prefill_against_forward(params, cfg, reqs, rows, dev, label, card):
+    """Phase 11's bf16 check: each request's prefill logits (``rows`` by
+    request id) against ``forward`` over the same prompt, within twice
+    the floor -- the largest forward-against-forward difference over the
+    requests: over the prompt twice (run-to-run noise), and, at the
+    prompt's positions, over the prompt and over the prompt + ``k`` of
+    its generated tokens (the same math on other GEMM shapes).  For
+    experts, ``k`` keeps the longer forward's capacity equal to the
+    prompt's, so the same assignments are dropped in both."""
+    import numpy as np
+    from repro_torch.models import moe
+    seen = []
+    for r in reqs:
+        s, k = len(r.prompt), len(r.out) // 2
+        if cfg.moe:
+            while k and moe.capacity(s + k, cfg) != moe.capacity(s, cfg):
+                k -= 1
+        if not k:
+            raise AssertionError(f"{label} request {r.rid}: no prefix floor")
+        whole = np.concatenate([r.prompt, np.asarray(r.out[:k], np.int32)])
+        fl = _forward_logits(params, cfg, r.prompt, dev)   # (s, vocab)
+        repeat = float((_forward_logits(params, cfg, r.prompt, dev) - fl)
+                       .abs().max())
+        prefix = float((_forward_logits(params, cfg, whole, dev)[:s] - fl)
+                       .abs().max())
+        diff = float((rows[r.rid] - fl[-1]).abs().max())
+        same = int(rows[r.rid].argmax()) == int(fl[-1].argmax())
+        seen.append((r, k, diff, same, repeat, prefix))
+    floor = max(max(x[4], x[5]) for x in seen)
+    for r, k, diff, same, repeat, prefix in seen:
+        print(f"[lm] {card} | {label} request {r.rid} (prompt "
+              f"{len(r.prompt)}): prefill logits against forward over the "
+              f"prompt: max abs difference {diff:.3e}, argmax "
+              f"{'equal' if same else 'differs'}; forward over the prompt "
+              f"twice {repeat:.3e}, against the prompt + {k} tokens at the "
+              f"prompt's positions {prefix:.3e}; tolerance {2 * floor:.3e} "
+              f"(twice the floor over {len(seen)} requests)")
+        if not diff <= 2 * floor:
+            raise AssertionError(f"{label} request {r.rid}: prefill logits "
+                                 f"differ from forward's by {diff} (> twice "
+                                 f"the floor {floor})")
 
 
 def _lm_full_width(dev, card):
@@ -1345,10 +1470,62 @@ def _lm_full_width(dev, card):
     cut = dataclasses.replace(full, n_layers=LM_CHECK_LAYERS, dtype="float32")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    _lm_serve_run(dev, card, cut, torch.float32, LM_FP32_ATOL,
-                  f"{LM_ARCH} float32, {LM_CHECK_LAYERS} layers")
-    return _lm_serve_run(dev, card, full, torch.bfloat16, LM_BF16_ATOL,
-                         f"{LM_ARCH} bf16", profile=True)
+    _lm_serve_run(dev, card, cut, torch.float32,
+                  f"{LM_ARCH} float32, {LM_CHECK_LAYERS} layers",
+                  tol=LM_FP32_ATOL)
+    return _lm_serve_run(dev, card, full, torch.bfloat16, f"{LM_ARCH} bf16",
+                         tol=LM_BF16_ATOL, profile=True)
+
+
+def _no_drop(cfg, **replace):
+    """``cfg`` at the capacity factor n_experts / top_k: every expert can
+    take every token, so no assignment is dropped."""
+    import dataclasses
+    e = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=e.n_experts / e.top_k, **replace))
+
+
+def _lm_families(dev, card):
+    """Phase 11: deepseek-v3 (MLA, 256 experts), llama4-scout (16
+    experts), mamba2 (SSD) and zamba2 (SSD + shared attention) at their
+    published widths through ``ServeEngine`` with phase 10b's traffic:
+    float32 runs against a teacher-forced forward at ``LM_FP32_ATOL``
+    (matmuls at "highest" precision), then bf16 runs with their numbers
+    and a profile of three decode steps."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    lens = [len(r.prompt) for r in _serve_reqs(
+        1000, LM_REQUESTS, LM_PROMPT_LENS, LM_MAX_NEW)]
+    shortest = tuple(sorted(int(i) for i in np.argsort(lens)[:2]))
+    ds = get_config("deepseek-v3-671b")
+    cut = _no_drop(dataclasses.replace(ds, n_layers=DS_CHECK_LAYERS,
+                                       dtype="float32"),
+                   first_dense=DS_CHECK_DENSE)
+    _lm_serve_run(dev, card, cut, torch.float32,
+                  f"deepseek-v3-671b float32, {DS_CHECK_LAYERS} layers "
+                  f"({DS_CHECK_DENSE} dense), no-drop capacity",
+                  tol=LM_FP32_ATOL, check_rids=shortest)
+    out = {"deepseek-v3-671b": _lm_serve_run(
+        dev, card, dataclasses.replace(ds, n_layers=DS_BF16_LAYERS),
+        torch.bfloat16, f"deepseek-v3-671b bf16, {DS_BF16_LAYERS} layers",
+        check_rids=shortest, prefill_check=True, profile=True)}
+    scout = get_config("llama4-scout-17b-a16e")
+    _lm_serve_run(dev, card, _no_drop(dataclasses.replace(
+        scout, n_layers=SCOUT_CHECK_LAYERS, dtype="float32")),
+        torch.float32, f"llama4-scout-17b-a16e float32, "
+        f"{SCOUT_CHECK_LAYERS} layers, no-drop capacity", tol=LM_FP32_ATOL)
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        full = get_config(arch)
+        _lm_serve_run(dev, card, dataclasses.replace(full, dtype="float32"),
+                      torch.float32, f"{arch} float32", tol=LM_FP32_ATOL)
+        out[arch] = _lm_serve_run(dev, card, full, torch.bfloat16,
+                                  f"{arch} bf16", profile=True)
+    return out
 
 
 def _free_memory():
@@ -1595,6 +1772,8 @@ def main() -> int:
     pois_modes = _poiseuille(dev, card)
     _lm_smoke_check(dev, card)
     _lm_full_width(dev, card)
+    # -- 11. this slice: the experts/MLA and SSM/hybrid families ----------
+    _lm_families(dev, card)
 
     entries = [
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],

@@ -2,8 +2,11 @@
 lengths, greedy decoding, with a smoke-size model of ``--arch`` whose
 weights are drawn from a seed.
 
-    PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch gemma2-27b]
+    PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch deepseek-v3-671b]
     PYTHONPATH=src python -m repro_torch.examples.serve_lm --device cpu
+
+``--arch`` takes any decoder-only config (attention, experts/MLA, SSM,
+hybrid).
 """
 import argparse
 import time
@@ -11,9 +14,9 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_smoke
+from repro_torch.models import common as cm
 from repro_torch.models import init_params
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.serve.lm_engine import serve_device
 
 
 def main(argv=None):
@@ -24,7 +27,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch)
-    device = serve_device(args.device)
+    device = cm.device_or_card(args.device)
     params = init_params(cfg, 0, device=device)
     eng = ServeEngine(params, cfg, batch_size=4, max_len=96, device=device)
 

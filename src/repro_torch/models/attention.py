@@ -9,8 +9,10 @@ from the compute-dtype operands, as the reference's
 ``preferred_element_type=float32`` does; no fused attention call is used,
 since the softcap and the per-row decode masks must stay the reference's.
 
-MLA (DeepSeek's latent attention) is not ported yet (ROADMAP §1, item
-11b).
+MLA (DeepSeek's latent attention) trains and prefills in the expanded
+form (the latent lifted to per-head K/V, q/k head dim ``nope + rope`` and
+v dim ``v_dim``, through ``chunked_attention``) and decodes in the
+absorbed form against a cache of the latent ``c`` and the rotated ``kr``.
 """
 from __future__ import annotations
 
@@ -208,8 +210,111 @@ def attn_decode(p, x, cfg, cache, pos, *, window=0):
     return out, cache
 
 
-def init_decode_cache(dtype, cfg, batch: int, max_len: int, device="cpu"):
+def init_decode_cache(dtype, cfg, batch: int, max_len: int, device=None):
+    """Zeroed K/V cache, each leaf its own storage; ``device=None`` is the
+    card."""
+    device = cm.device_or_card(device)
     kv, hd = cfg.n_kv_heads, cfg.hd
     shape = (batch, max_len, kv, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(init: cm.Init, cfg):
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.nope_dim + m.rope_dim
+    return {
+        "wdq": init.normal((d, m.q_lora)),
+        "qn": init.zeros((m.q_lora,)),
+        "wuq": init.normal((m.q_lora, h, qk)),
+        "wdkv": init.normal((d, m.kv_lora)),
+        "kvn": init.zeros((m.kv_lora,)),
+        "wkr": init.normal((d, m.rope_dim)),
+        "wuk": init.normal((m.kv_lora, h, m.nope_dim)),
+        "wuv": init.normal((m.kv_lora, h, m.v_dim)),
+        "wo": init.normal((h, m.v_dim, d)),
+    }
+
+
+def _mla_qkr(p, x, cfg, positions):
+    """Queries through the low-rank q path: (q_nope, q_rope rotated)."""
+    m = cfg.mla
+    cq = cm.rms_norm(torch.einsum("bsd,dq->bsq", x, p["wdq"].to(x.dtype)),
+                     p["qn"], cfg.norm_eps)
+    q = torch.einsum("bsq,qhk->bshk", cq, p["wuq"].to(x.dtype))
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_rope = cm.apply_rope(q_rope, positions, 1.0, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, x, cfg, positions):
+    """The cached pair: normed latent c (B,S,kv_lora), rotated kr
+    (B,S,rope_dim)."""
+    c = cm.rms_norm(torch.einsum("bsd,dc->bsc", x, p["wdkv"].to(x.dtype)),
+                    p["kvn"], cfg.norm_eps)
+    kr = torch.einsum("bsd,dr->bsr", x, p["wkr"].to(x.dtype))
+    kr = cm.apply_rope(kr[:, :, None, :], positions, 1.0,
+                       cfg.rope_theta)[:, :, 0, :]
+    return c, kr
+
+
+def mla_block(p, x, cfg, *, positions):
+    """Training / prefill MLA: the latent expanded to per-head K/V, causal
+    chunked attention (scale ``(nope + rope) ** -0.5``, no softcap)."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_qkr(p, x, cfg, positions)
+    c, kr = _mla_latent(p, x, cfg, positions)
+    k_nope = torch.einsum("bsc,chk->bshk", c, p["wuk"].to(x.dtype))
+    v = torch.einsum("bsc,chv->bshv", c, p["wuv"].to(x.dtype))
+    h = cfg.n_heads
+    k_rope = kr[:, :, None, :].expand(kr.shape[:2] + (h, m.rope_dim))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    o = chunked_attention(q, k, v, causal=True)
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype))
+
+
+def mla_decode(p, x, cfg, cache, pos):
+    """Absorbed MLA decode: cache is {"c": (B,T,kv_lora), "kr": (B,T,rope)}.
+    ``pos`` is a scalar or per-row (B,) vector; each row's latent and
+    rotated key are written at its own position, in place (the returned
+    cache is the one passed in)."""
+    m = cfg.mla
+    b = x.shape[0]
+    pv = pos_vec(pos, b, x.device)
+    q_nope, q_rope = _mla_qkr(p, x, cfg, pv[:, None])
+    c1, kr1 = _mla_latent(p, x, cfg, pv[:, None])
+    rows = torch.arange(b, device=x.device)
+    c, kr = cache["c"], cache["kr"]
+    c[rows, pv] = c1[:, 0].to(c.dtype)
+    kr[rows, pv] = kr1[:, 0].to(kr.dtype)
+    # Absorb W_uk into q: scores on the latent side, fp32 from
+    # compute-dtype operands.
+    q_lat = torch.einsum("bshk,chk->bshc", q_nope, p["wuk"].to(x.dtype))
+    f32 = torch.float32
+    sc = (torch.einsum("bshc,btc->bsht", q_lat.to(f32),
+                       c.to(x.dtype).to(f32))
+          + torch.einsum("bshr,btr->bsht", q_rope.to(f32),
+                         kr.to(x.dtype).to(f32)))
+    sc = sc * ((m.nope_dim + m.rope_dim) ** -0.5)
+    mask = torch.arange(c.shape[1], device=x.device)[None, :] <= pv[:, None]
+    sc = torch.where(mask[:, None, None, :], sc,
+                     torch.full((), NEG, dtype=sc.dtype, device=x.device))
+    pr = torch.softmax(sc, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bsht,btc->bshc", pr, c.to(x.dtype))
+    o = torch.einsum("bshc,chv->bshv", ctx, p["wuv"].to(x.dtype))
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype)), cache
+
+
+def init_mla_cache(dtype, cfg, batch: int, max_len: int, device=None):
+    """Zeroed latent cache; ``device=None`` is the card."""
+    device = cm.device_or_card(device)
+    m = cfg.mla
+    return {"c": torch.zeros((batch, max_len, m.kv_lora), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros((batch, max_len, m.rope_dim), dtype=dtype,
+                              device=device)}

@@ -12,16 +12,35 @@ import numpy as np
 import torch
 
 
+def device_or_card(device) -> torch.device:
+    """``device``, or the current CUDA card when it is None: an entry point
+    runs on the card unless the caller names another device, and raises
+    when there is no card rather than fall back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device=None means the CUDA card, and none "
+                               "was found; pass device='cpu' to run on the "
+                               "CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Init:
     """Seeded initializer: one ``torch.Generator`` on the target device
     draws every leaf in order, directly in ``dtype`` (a 20B-parameter model
-    is never materialised in fp32)."""
+    is never materialised in fp32).  ``device=None`` is the card; on the
+    ``meta`` device the leaves carry shapes only."""
 
-    def __init__(self, seed: int, dtype=torch.float32, device="cpu"):
+    def __init__(self, seed: int, dtype=torch.float32, device=None):
         self.dtype = dtype
-        self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.device = device_or_card(device)
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
 
     def normal(self, shape, scale=0.02):
         v = torch.randn(tuple(shape), generator=self.gen, dtype=self.dtype,
@@ -33,6 +52,11 @@ class Init:
 
     def ones(self, shape):
         return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+
+    def const(self, value):
+        """A leaf holding ``value`` (host numbers, rounded to ``dtype``)."""
+        return torch.as_tensor(np.asarray(value), dtype=self.dtype).to(
+            self.device)
 
 
 class StackedInit(Init):
@@ -51,6 +75,11 @@ class StackedInit(Init):
 
     def ones(self, shape):
         return super().ones((self.n,) + tuple(shape))
+
+    def const(self, value):
+        # One copy per layer, each its own storage (not an expanded view).
+        v = super().const(value)
+        return v.expand((self.n,) + tuple(v.shape)).clone()
 
 
 # ---------------------------------------------------------------------------

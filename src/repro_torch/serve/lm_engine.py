@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import common as cm
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models import lm
 
@@ -35,26 +36,13 @@ class Request:
     done: bool = False
 
 
-def serve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("ServeEngine(device=None) serves on a CUDA "
-                               "card and found none; pass device='cpu' to "
-                               "serve on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 class ServeEngine:
     def __init__(self, params, cfg, batch_size: int, max_len: int,
                  cache_dtype=torch.float32, greedy: bool = True,
                  temperature: float = 1.0, top_k: int = 0, seed: int = 0,
                  device=None):
         lm.check_supported(cfg)
-        self.device = serve_device(device)
+        self.device = cm.device_or_card(device)
         for leaf in lm.tree_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"parameters live on {leaf.device}, the "
@@ -77,11 +65,21 @@ class ServeEngine:
         self.queue.append(req)
 
     def _write_slot_cache(self, slot: int, src_cache):
-        """Copy a single-request prefill cache into batch slot ``slot``:
-        every cache leaf is ``(layers, batch, ...)``."""
-        for name, kv in self.cache["layers"].items():
-            for kk, dst in kv.items():
-                dst[:, slot] = src_cache["layers"][name][kk][:, 0]
+        """Copy a single-request prefill cache into batch slot ``slot``,
+        every subtree of it.  Each leaf's batch axis is where its family
+        puts it (axis 1 for ``(layers, B, ...)`` stacks, axis 2 for
+        zamba2's ``(groups, period, B, ...)`` SSM states): the first axis
+        whose extent is the engine's batch here and 1 in the request's
+        cache, with equal extents before it."""
+        dst_leaves = list(lm.tree_leaves(self.cache))
+        src_leaves = list(lm.tree_leaves(src_cache))
+        if len(dst_leaves) != len(src_leaves):
+            raise ValueError("the prefill cache's tree is not the engine's")
+        for dst, src in zip(dst_leaves, src_leaves):
+            axis = next(a for a in range(dst.dim())
+                        if dst.shape[a] == self.bs and src.shape[a] == 1
+                        and dst.shape[:a] == src.shape[:a])
+            dst.select(axis, slot).copy_(src.select(axis, 0))
 
     def _select(self, logits_row: np.ndarray) -> int:
         """Greedy argmax or temperature/top-k sampling."""

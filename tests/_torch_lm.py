@@ -1,7 +1,8 @@
 """Shared helpers of the LM parity tests (``tests/test_torch_lm*.py``):
-the reference's smoke-config parameters carried into the port, and the
-forward / prefill / decode / init checks each file runs on its archs.
-Tolerance: rtol 1e-4, atol 1e-4 (float32 on the CPU).
+a smoke config's parameters given to both packages, and the forward (with
+its aux loss) / prefill (with its caches) / decode / init checks each
+file runs on its archs.  Tolerance: rtol 1e-4, atol 1e-4 (float32 on the
+CPU).
 """
 import dataclasses
 
@@ -22,22 +23,54 @@ from repro_torch.models import lm
 
 RTOL = ATOL = 1e-4
 B, S, MAX_LEN = 2, 24, 40
-MATRICES = {"embed", "head", "wq", "wk", "wv", "wo", "wg", "wu", "wd"}
+# The leaves ``param_count`` counts: every matrix (attention, MLA, dense
+# and expert feed-forward, router, SSM projections and conv) and the
+# SSM's two drawn per-head leaves; norm scales, biases, D and the MTP
+# subtree are left out of it, as in the reference.
+MATRICES = {"embed", "head", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
+            "wdq", "wuq", "wdkv", "wkr", "wuk", "wuv", "router", "in_proj",
+            "conv_w", "out_proj", "A_log", "dt_bias"}
 
 _MODELS = {}
 
 
-def model(arch, **replace):
+def model(arch, *, ref_init=True, **replace):
     """(reference cfg, reference params, port cfg, port params) of an
-    arch's smoke config, memoised."""
-    key = (arch, tuple(sorted(replace.items())))
+    arch's smoke config, memoised.  The tree is the reference's own
+    ``init_params(cfg, jax.random.key(0))``, or with ``ref_init=False``
+    the port's seeded init drawn on the CPU (the reference's layout and
+    scales, the SSM's ``A_log``/``dt_bias`` its exact values): the
+    reference's eager init compiles every new leaf shape, ~35 s for
+    deepseek's smoke config on one core."""
+    key = (arch, ref_init, tuple(sorted(replace.items())))
     if key not in _MODELS:
         jcfg = dataclasses.replace(jget_smoke(arch), **replace)
         cfg = dataclasses.replace(get_smoke(arch), **replace)
-        jp, _ = jinit_params(jcfg, jax.random.key(0))
-        tp = params_from_reference(jax.tree.map(np.asarray, jp), cfg)
+        if ref_init:
+            jp, _ = jinit_params(jcfg, jax.random.key(0))
+            tree = jax.tree.map(np.asarray, jp)
+        else:
+            tree = lm.tree_map(lambda t: t.numpy(),
+                               init_params(cfg, seed=0, device="cpu"))
+            jp = jax.tree.map(jnp.asarray, tree)
+        tp = params_from_reference(tree, cfg, device="cpu")
         _MODELS[key] = (jcfg, jp, cfg, tp)
     return _MODELS[key]
+
+
+def seq_len(cfg, s=S):
+    """``s`` rounded up to the SSM chunk: the reference's chunked SSD
+    takes whole chunks (the model is causal, so a right pad leaves the
+    real positions as they are)."""
+    ck = cfg.ssm.chunk if cfg.ssm else 1
+    return -(-s // ck) * ck
+
+
+def ref_shapes(jcfg):
+    """The reference's parameter shapes, traced without drawing them."""
+    tree = jax.eval_shape(lambda k: jinit_params(jcfg, k)[0],
+                          jax.random.key(0))
+    return jax.tree.map(lambda a: tuple(a.shape), tree)
 
 
 def tokens(cfg, b=B, s=S, seed=0):
@@ -51,18 +84,33 @@ def close(got, want):
                                atol=ATOL)
 
 
-def check_forward(arch, seed=0, **replace):
-    jcfg, jp, cfg, tp = model(arch, **replace)
-    toks = tokens(cfg, seed=seed)
-    want, _ = jforward(jp, jcfg, {"tokens": jnp.asarray(toks)}, train=False)
+def check_forward(arch, seed=0, ref_init=True, **replace):
+    """Logits and the aux loss (the experts' balance term; 0 without
+    experts) of ``forward`` against the reference's."""
+    jcfg, jp, cfg, tp = model(arch, ref_init=ref_init, **replace)
+    s = seq_len(cfg)
+    toks = tokens(cfg, s=s, seed=seed)
+    want, jaux = jforward(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                          train=False)
     got, aux = forward(tp, cfg, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (B, S, cfg.vocab) and got.dtype == torch.float32
-    assert float(aux) == 0.0
+    assert got.shape == (B, s, cfg.vocab) and got.dtype == torch.float32
+    assert aux.shape == () and aux.dtype == torch.float32
+    assert (float(aux) > 0) == bool(cfg.moe)
     close(got, want)
+    close(aux, jaux)
 
 
-def prefill_both(arch):
-    jcfg, jp, cfg, tp = model(arch)
+def leaves_close(got, want):
+    """Every leaf of a port cache tree against the reference's, in the
+    same order (dict keys sorted, tuples in order) and of equal shapes."""
+    jl, tl = jax.tree.leaves(want), list(lm.tree_leaves(got))
+    assert [tuple(a.shape) for a in jl] == [tuple(t.shape) for t in tl]
+    for t, a in zip(tl, jl):
+        close(t, a)
+
+
+def prefill_both(arch, ref_init=True):
+    jcfg, jp, cfg, tp = model(arch, ref_init=ref_init)
     toks = tokens(cfg, seed=1)
     jl, jc = jprefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
                       max_len=MAX_LEN, cache_dtype=jnp.float32)
@@ -71,51 +119,44 @@ def prefill_both(arch):
     return (jcfg, jp, jl, jc), (cfg, tp, tl, tc)
 
 
-def check_prefill_and_decode(arch):
-    """``prefill``'s last logits and cache, then four ``decode_step``s at
-    per-row positions (row 1 rewinds 5 positions and overwrites them)."""
-    (jcfg, jp, jl, jc), (cfg, tp, tl, tc) = prefill_both(arch)
+def check_prefill_and_decode(arch, ref_init=True):
+    """``prefill``'s last logits and every cache leaf (K/V, MLA's latent
+    and rotated key, the dense prefix's, SSM states and conv buffers),
+    then four ``decode_step``s at per-row positions (row 1 rewinds 5
+    positions and overwrites them) and the caches after them.  The
+    reference's decode step runs jitted (one compile for the four)."""
+    (jcfg, jp, jl, jc), (cfg, tp, tl, tc) = prefill_both(arch, ref_init)
     close(tl, jl)
-    assert sorted(tc["layers"]) == sorted(jc["layers"])
-    for name, kv in jc["layers"].items():
-        for kk in ("k", "v"):
-            got = tc["layers"][name][kk]
-            assert got.shape == kv[kk].shape == (
-                cfg.n_cycles, B, MAX_LEN, cfg.n_kv_heads, cfg.hd)
-            close(got, kv[kk])
+    leaves_close(tc, jc)
+    jdecode = jax.jit(jdecode_step, static_argnums=1)
     pos = np.array([S, S - 5], np.int32)
     tok = np.array([3, 5], np.int32)
     for _ in range(4):
-        jl, jc = jdecode_step(jp, jcfg, jc, jnp.asarray(tok),
-                              jnp.asarray(pos))
+        jl, jc = jdecode(jp, jcfg, jc, jnp.asarray(tok), jnp.asarray(pos))
         tl, tc2 = decode_step(tp, cfg, tc, torch.from_numpy(tok),
                               torch.from_numpy(pos))
         assert tc2 is tc                      # updated in place
         close(tl, jl)
         tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
         pos = pos + 1
-    for name, kv in jc["layers"].items():
-        for kk in ("k", "v"):
-            close(tc["layers"][name][kk], kv[kk])
+    leaves_close(tc, jc)
 
 
-def check_init(arch):
+def check_init(arch, ref_init=True):
     """The port's own init: the reference's shapes, the analytic count of
-    its matrices (norm scales and biases are left out of it, as in the
-    reference), and the same values from the same seed."""
-    jcfg, jp, cfg, _ = model(arch)
-    tp = init_params(cfg, seed=3)
-    shapes = jax.tree.map(lambda a: tuple(a.shape), jp)
-    assert lm.tree_map(lambda t: tuple(t.shape), tp) == shapes
+    its matrices (``MATRICES``), and the same values from the same seed."""
+    jcfg, _, cfg, _ = model(arch, ref_init=ref_init)
+    tp = init_params(cfg, seed=3, device="cpu")
+    assert lm.tree_map(lambda t: tuple(t.shape), tp) == ref_shapes(jcfg)
     n = 0
     stack = [(None, tp)]
     while stack:
         name, node = stack.pop()
-        if isinstance(node, dict):
+        if isinstance(node, dict) and name != "mtp":
             stack += list(node.items())
         elif name in MATRICES:
             n += node.numel()
     assert n == param_count(cfg)["total"]
-    again = init_params(cfg, seed=3)
+    again = init_params(cfg, seed=3, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(lm.tree_leaves(tp),
                                                  lm.tree_leaves(again)))

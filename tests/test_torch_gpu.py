@@ -1,13 +1,14 @@
-"""Card-only tests of the port's CUDA kernel (marker ``gpu``).
+"""Card-only tests of the port's CUDA kernel and LM path (marker ``gpu``).
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py    # on the card
 
 The parity sweeps of ``chip_smoke.py`` at a small lattice -- periodic,
 extended-shard and precomputed-RNG mode -- the kernel against its plain
 version on the card, bit for bit; the single-device and sharded entry
-points against their plain runs on the CPU.  Whether a card is present is
-decided inside the ``cuda`` fixture, so every worker collects the same
-tests; without a card they skip.
+points against their plain runs on the CPU; the smoke LMs of every ported
+family through ``ServeEngine`` on the card against the CPU.  Whether a
+card is present is decided inside the ``cuda`` fixture, so every worker
+collects the same tests; without a card they skip.
 """
 import pytest
 import torch
@@ -218,11 +219,14 @@ def test_poiseuille_kernel_matches_run_planes_on_card(cuda):
     assert (prof == pprof).all()
 
 
-@pytest.mark.parametrize("arch", ["repro-100m", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["repro-100m", "gemma2-27b",
+                                  "deepseek-v3-671b", "llama4-scout-17b-a16e",
+                                  "mamba2-2.7b", "zamba2-2.7b"])
 def test_smoke_lm_on_card_matches_cpu(cuda, arch):
     # The same seeded float32 smoke model on the card and on the CPU, the
     # same requests through ServeEngine: equal greedy tokens; prefill and
     # decode logits within 1e-3 at "highest" matmul precision (no TF32).
+    # MoE/MLA (deepseek, llama4), SSM (mamba2) and hybrid (zamba2) too.
     import numpy as np
 
     from repro_torch.configs import get_smoke
@@ -231,7 +235,7 @@ def test_smoke_lm_on_card_matches_cpu(cuda, arch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     cfg = get_smoke(arch)
-    host = init_params(cfg, seed=0)
+    host = init_params(cfg, seed=0, device="cpu")
     card = lm.tree_map(lambda t: t.to(cuda), host)
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)

@@ -67,7 +67,7 @@ def test_select_matches_reference(temperature, top_k, seed):
 
 def test_queue_overflow_drains_and_batched_equals_single():
     cfg = get_smoke("internlm2-20b")
-    params = init_params(cfg, seed=5)
+    params = init_params(cfg, seed=5, device="cpu")
     reqs = requests(cfg, 7, seed=1, lens=(3, 6, 11), max_new=(2, 7))
     eng = ServeEngine(params, cfg, batch_size=2, max_len=24, device=CPU)
     batched = serve(eng, reqs, Request)
@@ -82,7 +82,7 @@ def test_queue_overflow_drains_and_batched_equals_single():
 
 def test_eos_and_max_len_free_the_slot():
     cfg = get_smoke("repro-100m")
-    params = init_params(cfg, seed=2)
+    params = init_params(cfg, seed=2, device="cpu")
     prompt = np.arange(5, dtype=np.int32)
     first = serve(ServeEngine(params, cfg, 1, 16, device=CPU),
                   [(0, prompt, 6)], Request)[0]
@@ -100,12 +100,13 @@ def test_eos_and_max_len_free_the_slot():
 
 def test_engine_needs_a_card_or_an_explicit_device(monkeypatch):
     cfg = get_smoke("repro-100m")
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(params, cfg, 2, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(params, get_smoke("mamba2-2.7b"), 2, 16, device=CPU)
+        ServeEngine(params, get_smoke("seamless-m4t-medium"), 2, 16,
+                    device=CPU)
 
 
 def test_serve_lm_example_cpu_ends_ok(capsys):
