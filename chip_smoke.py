@@ -114,7 +114,7 @@ no result line):
    phase and at the end, the profile equal, R^2 > 0.9 and concave; prints
    R^2, the curvature and both runs' ms;
 10. the LM serve path (``serve.ServeEngine``), which reaches no custom
-    kernel (plain PyTorch, as the reference's attention, experts and SSD
+    kernel (nor do phases 11-13) (plain PyTorch, as the reference's attention, experts and SSD
     are plain jnp):
     a. the smoke configs of repro-100m, gemma2-27b, deepseek-v3-671b,
        llama4-scout-17b-a16e, mamba2-2.7b and zamba2-2.7b in float32,
@@ -151,6 +151,40 @@ no result line):
     Each bf16 run prints a profile of three decode steps; a step's byte
     bound counts every parameter it reads (every expert, not the MTP
     leaves).
+12. the encoder-decoder (seamless-m4t-medium at its published width and
+    depth: 12 + 12 layers, d_model 1024, vocab 256206) through
+    ``models.lm.prefill`` and ``decode_step`` (``ServeEngine`` refuses
+    this family, as the reference's cannot serve it): 4 rows of 512
+    frames from ``SyntheticLM(frames_dim=1024, seed=7)``, prompts of its
+    first 16 tokens, 64 greedy tokens at per-row positions.  Float32:
+    every generated position's logits within 1e-3 of a teacher-forced
+    ``forward`` over prompt + generated tokens with the same frames.
+    Bf16: the encoder's and prefill's ms, decode ms a step against its
+    byte bound (the bytes a step reads, from the meta device: decoder
+    layers without the cached cross K/V projections, final norm, head,
+    one embedding row a token, both caches), a profile of three steps,
+    peak memory; the logits within twice a measured floor of the same
+    forward (the bf16 forward against the float32 forward of the same
+    parameters, and over a prefix against the whole);
+13. training (``loss_fn`` with autograd, ``optim.AdamW``,
+    ``train.make_train_step`` and ``Trainer``):
+    a. the ten assigned smoke configs in float32 (experts no-drop, MTP
+       for deepseek), the same parameters and batch on the card and the
+       CPU: loss and every gradient leaf within 1e-4 of the leaf's
+       largest magnitude, one AdamW update from the same gradients
+       within 1e-4;
+    b. repro-100m at full width (12 layers, d_model 768, vocab 32768,
+       tied) through ``Trainer`` (seq 512 x batch 8, 60 steps, lr 3e-4,
+       warmup 20, checkpoints every 20; bf16 compute, float32 masters,
+       remat): the loss falls, a fresh Trainer resumes at step 60
+       bit-equal, a run stopped at step 20 and resumed equals the
+       straight one (rtol 1e-6, atol 1e-7), 4 microbatches give a first
+       loss within 1e-2; step ms, tokens/s, the FLOP bound (6 N T, 2
+       N_layers T of recompute, the attention's S^2 products, at 989
+       TFLOP/s), a profile of three steps, peak memory;
+    c. one ``make_train_step`` of seamless-m4t-medium at full width (seq
+       256 x batch 4, frames from ``SyntheticLM``): a finite loss, step
+       ms and peak memory.
 
 Every entry's ``max_abs_err`` comes from its timed launch held against the
 plain version.
@@ -166,6 +200,7 @@ timeline, ms).
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -222,6 +257,20 @@ LM_BF16_ATOL = 1.0
 DS_CHECK_LAYERS, DS_CHECK_DENSE = 2, 1
 DS_BF16_LAYERS = 5
 SCOUT_CHECK_LAYERS = 2
+# Phase 12: the encoder-decoder at published width and depth: a batch of
+# ENC_BATCH, ENC_FRAMES frames of SyntheticLM(frames_dim=d_model,
+# seed=ENC_SEED), prompts of the stream's first ENC_PROMPT tokens,
+# ENC_NEW greedy tokens through prefill and decode_step.
+ENC_ARCH, ENC_SEED = "seamless-m4t-medium", 7
+ENC_BATCH, ENC_FRAMES, ENC_PROMPT, ENC_NEW = 4, 512, 16, 64
+# Phase 13: training.  13b is the reference example's --full config
+# (train_lm.py) with its step count cut; 13c one step of the
+# encoder-decoder at full width.
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = "repro-100m", 512, 8, 60
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY, TRAIN_STOP = 3e-4, 20, 20, 20
+TRAIN_SMOKE_ATOL = 1e-4     # float32, card against CPU (13a)
+ENC_TRAIN_SEQ, ENC_TRAIN_BATCH = 256, 4
+BF16_FLOPS = 989e12         # H100 SXM datasheet, dense bf16
 SOURCE = "src/repro_torch/kernels/fhp_step/csrc/fhp_step.cu"
 REPLACES = "src/repro/kernels/fhp_step/kernel.py:330"
 
@@ -1271,20 +1320,27 @@ def _teacher_forced(params, cfg, r, pre_row, dec, dev, tol, label, card):
 
 def _lm_decode_profile(params, cfg, eng, label, card, steps=3):
     """``steps`` batched decode steps on the engine's cache under
-    ``torch.profiler``: wall, device time of the kernels (the device's
-    busy share), kernel count and the kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler`` (``_profiled``), every slot at position 600."""
     from repro_torch.models import decode_step
     toks = torch.zeros(eng.bs, dtype=torch.int64, device=eng.device)
     pos = torch.full((eng.bs,), 600, dtype=torch.int64, device=eng.device)
     decode_step(params, cfg, eng.cache, toks, pos)         # warm
+    _profiled(lambda: decode_step(params, cfg, eng.cache, toks, pos),
+              f"{label}: {steps} decode steps", "a step", card, steps)
+
+
+def _profiled(fn, label, unit, card, steps=3):
+    """``fn`` called ``steps`` times under ``torch.profiler``: wall,
+    device time of the kernels (the device's busy share), kernel count
+    and the kernels that take the most, per call.  Returns (device busy
+    share of the wall, kernels a call), None for either not measured."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(steps):
-            decode_step(params, cfg, eng.cache, toks, pos)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     rows = [e for e in prof.key_averages()
@@ -1296,18 +1352,19 @@ def _lm_decode_profile(params, cfg, eng, label, card, steps=3):
     if not dev_us:
         print(f"[lm-profile] {card} | {label}: the profiler showed no "
               f"device time (not measured); wall {wall / steps * 1e3:.3f} "
-              f"ms a step")
-        return
+              f"ms {unit}")
+        return None, None
     top = sorted(rows, key=lambda e: -getattr(
         e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
-    print(f"[lm-profile] {card} | {label}: {steps} decode steps, wall "
-          f"{wall / steps * 1e3:.3f} ms a step, device busy "
-          f"{dev_us / 1e3 / steps:.3f} ms a step "
+    print(f"[lm-profile] {card} | {label}, wall "
+          f"{wall / steps * 1e3:.3f} ms {unit}, device busy "
+          f"{dev_us / 1e3 / steps:.3f} ms {unit} "
           f"({dev_us / 1e6 / wall:.4f} of the wall), {n_k / steps:.0f} "
-          f"kernels a step; most device time: " + "; ".join(
+          f"kernels {unit}; most device time: " + "; ".join(
               f"{e.key[:60]} x{e.count // steps} "
               f"{getattr(e, 'self_device_time_total', getattr(e, 'self_cuda_time_total', 0)) / 1e3 / steps:.3f} ms"
               for e in top[:6]))
+    return dev_us / 1e6 / wall, n_k / steps
 
 
 def _describe(cfg) -> str:
@@ -1526,6 +1583,412 @@ def _lm_families(dev, card):
         out[arch] = _lm_serve_run(dev, card, full, torch.bfloat16,
                                   f"{arch} bf16", profile=True)
     return out
+
+
+# -- phases 12 and 13 ---------------------------------------------------------
+
+def _encdec_decode_bytes(cfg, dtype, batch, max_len, t_enc) -> int:
+    """Bytes one encoder-decoder ``decode_step`` must read, from the
+    parameter shapes on the meta device: every decoder layer's leaves but
+    the cross block's ``wk``/``wv`` (its K/V are cached), the final norm,
+    the head (the tied embedding when tied), one embedding row a token,
+    and the self and cross caches whole (the masked full-cache attention
+    reads every slot)."""
+    from repro_torch.models import init_params, lm
+    meta = init_params(cfg, device="meta", dtype=dtype)
+    size = torch.finfo(dtype).bits // 8
+    layers = lm.param_numel(meta["layers"]) - sum(
+        lm.param_numel(st["xattn"][w]) for st in meta["layers"].values()
+        for w in ("wk", "wv"))
+    head = lm.param_numel(meta["embed"] if cfg.tie_embeddings
+                          else meta["head"])
+    params = (layers + lm.param_numel(meta["final_norm"]) + head
+              + batch * cfg.d_model)
+    kv = cfg.n_kv_heads * cfg.hd
+    caches = 2 * cfg.n_cycles * batch * (max_len + t_enc) * kv
+    return (params + caches) * size
+
+
+def _encdec_run(dev, card, cfg, dtype, label):
+    """Phase 12's run: ``cfg``'s parameters drawn on the card in
+    ``dtype``; ``ENC_BATCH`` rows of ``ENC_FRAMES`` frames from
+    ``SyntheticLM``, prompts of its first ``ENC_PROMPT`` tokens: the
+    encoder timed alone and ``prefill`` (each median of 3 after a first
+    call), then ``ENC_NEW - 1`` greedy ``decode_step``s at per-row
+    positions.  Returns (params, frames, prompt + generated tokens,
+    logits of every generated position (B, ENC_NEW, V) float32 on the
+    host, numbers)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import decode_step, init_params, lm, prefill
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev, dtype=dtype)
+    data = SyntheticLM(cfg.vocab, ENC_FRAMES, ENC_BATCH, seed=ENC_SEED,
+                       frames_dim=cfg.d_model).batch_at(0)
+    frames = torch.from_numpy(data["frames"]).to(dev)
+    toks = torch.from_numpy(data["tokens"][:, :ENC_PROMPT]).to(dev)
+    max_len = ENC_PROMPT + ENC_NEW
+    enc_ms = []
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lm._encode(lm.cast_params_for_compute(params, cfg), cfg, frames)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t) * 1e3)
+        pre_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = prefill(params, cfg, {"tokens": toks,
+                                                  "frames": frames},
+                                    max_len, cache_dtype=dtype)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t) * 1e3)
+        rows, dec_ms = [logits.float().cpu()], []
+        tok = logits.argmax(-1)
+        pos = torch.full((ENC_BATCH,), ENC_PROMPT, dtype=torch.int64,
+                         device=dev)
+        seq = [toks, tok[:, None]]
+        for _ in range(ENC_NEW - 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = decode_step(params, cfg, cache, tok, pos)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t) * 1e3)
+            rows.append(logits.float().cpu())
+            tok, pos = logits.argmax(-1), pos + 1
+            seq.append(tok[:, None])
+        peak = torch.cuda.max_memory_allocated()
+        busy = kernels = None
+        if dtype != torch.float32:
+            last = pos - 1
+            busy, kernels = _profiled(
+                lambda: decode_step(params, cfg, cache, tok, last),
+                f"{label}: 3 decode steps", "a step", card)
+    bound_ms = _encdec_decode_bytes(cfg, dtype, ENC_BATCH, max_len,
+                                    ENC_FRAMES) / HBM_BYTES_PER_S * 1e3
+    med = statistics.median(dec_ms)
+    enc = statistics.median(enc_ms[1:])
+    pre = statistics.median(pre_ms[1:])
+    print(f"[encdec] {card} | {label}: {cfg.enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}: {lm.param_numel(params)} parameters in "
+          f"{dtype}; {ENC_BATCH} rows of {ENC_FRAMES} frames, prompts of "
+          f"{ENC_PROMPT} tokens, {ENC_NEW} greedy tokens: encoder median "
+          f"{enc:.3f} ms (first {enc_ms[0]:.3f}); prefill median {pre:.3f} "
+          f"ms (first {pre_ms[0]:.3f}; {pre / (ENC_BATCH * ENC_PROMPT):.4f} "
+          f"ms a prompt token, the encoder included; "
+          f"{(pre - enc) / (ENC_BATCH * ENC_PROMPT):.4f} without it); decode {len(dec_ms)} steps, median {med:.3f} ms "
+          f"(least {min(dec_ms):.3f}, most {max(dec_ms):.3f}), byte bound "
+          f"{bound_ms:.4f} ms (bytes a step reads / {HBM_BYTES_PER_S:.3g} "
+          f"B/s), the median step at {bound_ms / med:.4f} of it; peak "
+          f"memory {peak} bytes")
+    return (params, frames, torch.cat(seq, dim=1),
+            torch.stack(rows, dim=1),
+            {"encoder_ms": enc, "prefill_ms": pre, "decode_ms": med,
+             "bound_ms": bound_ms, "peak_bytes": peak, "busy": busy,
+             "kernels": kernels})
+
+
+def _teacher_forced_logits(params, cfg, frames, seq, start, end):
+    """``forward``'s logits over ``seq[:, :end]`` with the same frames,
+    rows ``start:end``, float32 on the host."""
+    from repro_torch.models import forward
+    with torch.no_grad():
+        out, _ = forward(params, cfg, {"tokens": seq[:, :end],
+                                       "frames": frames})
+    return out[:, start:end].float().cpu()
+
+
+def _lm_encdec(dev, card):
+    """Phase 12: ``ENC_ARCH`` at its published width and depth, first in
+    float32 (every generated position's logits within ``LM_FP32_ATOL`` of
+    a teacher-forced forward over prompt + generated tokens with the same
+    frames; matmuls at "highest" precision), then timed in bf16 (held
+    against the same forward within twice a measured floor: the larger of
+    the bf16 forward's difference from the float32 forward of the same
+    parameters -- the compute dtype's own rounding -- and of the bf16
+    forward over prompt + half the generated tokens from the forward over
+    all of them, at the shared positions)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    full = get_config(ENC_ARCH)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    n = ENC_PROMPT - 1 + ENC_NEW                 # tokens the forward sees
+    out = {}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        cfg = dataclasses.replace(full, dtype=name)
+        label = f"{ENC_ARCH} {name}"
+        params, frames, seq, rows, nums = _encdec_run(dev, card, cfg, dtype,
+                                                      label)
+        tf = _teacher_forced_logits(params, cfg, frames, seq,
+                                    ENC_PROMPT - 1, n)
+        diff = (rows - tf).abs()
+        same = int((rows.argmax(-1) == tf.argmax(-1)).sum())
+        note = ""
+        if dtype == torch.float32:
+            tol = LM_FP32_ATOL
+        else:
+            half = ENC_PROMPT - 1 + ENC_NEW // 2
+            prefix = float((_teacher_forced_logits(
+                params, cfg, frames, seq, ENC_PROMPT - 1, half)
+                - tf[:, :half - ENC_PROMPT + 1]).abs().max())
+            exact = _teacher_forced_logits(
+                lm.tree_map(lambda t: t.float(), params),
+                dataclasses.replace(cfg, dtype="float32"), frames, seq,
+                ENC_PROMPT - 1, n)
+            rounding = float((tf - exact).abs().max())
+            tol = 2 * max(prefix, rounding)
+            note = (f" (twice the floor: the larger of the bf16 forward "
+                    f"against the float32 forward of the same parameters, "
+                    f"{rounding:.3e}, and the bf16 forward over a prefix "
+                    f"against the whole, {prefix:.3e}; the decoded logits "
+                    f"against the float32 forward: "
+                    f"{float((rows - exact).abs().max()):.3e})")
+            del exact
+        print(f"[encdec] {card} | {label}: prefill + decode against a "
+              f"teacher-forced forward over {n} tokens: logits max abs "
+              f"difference {float(diff.max()):.3e} (mean "
+              f"{float(diff.mean()):.3e}), argmax equal at {same} of "
+              f"{rows.shape[0] * rows.shape[1]} positions; tolerance "
+              f"{tol:.3e}{note}")
+        if not float(diff.max()) <= tol:
+            raise AssertionError(f"{label}: decoded logits differ from the "
+                                 f"teacher-forced forward's by "
+                                 f"{float(diff.max())} (> {tol})")
+        out[name] = nums
+        del params, frames, rows, tf
+        _free_memory()
+    return out
+
+
+def _train_smoke_check(dev, card):
+    """Phase 13a: every assigned smoke config in float32 from the same
+    seeded parameters and batch on the card and the CPU: the loss and
+    every gradient leaf (within ``TRAIN_SMOKE_ATOL`` of the leaf's largest
+    magnitude), then one ``AdamW.update`` from the same parameters and
+    the CPU's gradients on both (within ``TRAIN_SMOKE_ATOL``); matmuls at
+    "highest" precision.  Each device's update from its own gradients is
+    printed beside it: Adam's first step, ``g / (|g| + eps)``, turns the
+    ulp-level difference of a gradient element near 0 into a large
+    difference of that element's step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.registry import ASSIGNED
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, lm, loss_fn
+    from repro_torch.optim import AdamW, cosine_schedule
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    opt = AdamW(lr=cosine_schedule(1e-3, 0, 10))
+    cpu = torch.device("cpu")
+
+    def update(params, grads):
+        return list(lm.tree_leaves(opt.update(grads, opt.init(params),
+                                              params)[0]))
+
+    for arch in ASSIGNED:
+        cfg = get_smoke(arch)
+        cfg = _no_drop(cfg) if cfg.moe else cfg     # as test_models.nodrop
+        host = init_params(cfg, seed=0, device="cpu")
+        batch = SyntheticLM(cfg.vocab, cfg.ssm.chunk if cfg.ssm else 32, 4,
+                            seed=3, frames_dim=cfg.d_model
+                            if cfg.enc_layers else 0).batch_at(0)
+        res = []
+        for d in (dev, cpu):
+            live = lm.tree_map(lambda t: t.to(d).requires_grad_(True), host)
+            loss, met = loss_fn(live, cfg, {k: torch.from_numpy(v).to(d)
+                                            for k, v in batch.items()})
+            loss.backward()
+            grads = lm.tree_map(lambda t: t.grad if t.grad is not None
+                                else torch.zeros_like(t), live)
+            res.append((float(loss.detach()), grads,
+                        lm.tree_map(lambda t: t.detach(), live)))
+        (gl, gg, gp), (hl, hg, hp) = res
+        gerr = max(float((a.cpu() - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(lm.tree_leaves(gg), lm.tree_leaves(hg)))
+        want = update(hp, hg)
+        same = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            update(gp, lm.tree_map(lambda t: t.to(dev), hg)), want))
+        own = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(update(gp, gg), want))
+        print(f"[train] {card} | {arch} smoke (float32, {len(want)} leaves, "
+              f"terms {sorted(met)}): loss card {gl:.7f} / CPU {hl:.7f}; "
+              f"gradients within {gerr:.3e} of each leaf's largest "
+              f"magnitude; one AdamW update from the CPU's gradients within "
+              f"{same:.3e} (tolerance {TRAIN_SMOKE_ATOL}); from each "
+              f"device's own gradients {own:.3e}")
+        if not (abs(gl - hl) <= TRAIN_SMOKE_ATOL * max(1.0, abs(hl))
+                and gerr <= TRAIN_SMOKE_ATOL and same <= TRAIN_SMOKE_ATOL):
+            raise AssertionError(f"{arch} smoke: the card's train step "
+                                 f"differs from the CPU's")
+
+
+def _train_flop_bound_ms(cfg, params, tokens, batch, seq) -> float:
+    """The least time of one training step at ``BF16_FLOPS``: 6 N T for
+    the forward and backward matmuls (N every parameter a token
+    multiplies: the layers and the head), 2 N_layers T for the
+    recomputed forward of every cycle (remat), and the attention's
+    score and value products, S x S per row (the chunked attention
+    computes every one; causal masking skips none): 4 B S^2 d per layer
+    a forward pass, four passes with the backward and the recompute."""
+    from repro_torch.models import lm
+    n = lm.param_numel(params) - (0 if cfg.tie_embeddings
+                                  else lm.param_numel(params["embed"]))
+    n_layers = lm.param_numel(params["layers"])
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.hd * cfg.n_layers
+    flops = 6 * n * tokens + (2 * n_layers * tokens + attn
+                              if cfg.remat else 0) + 3 * attn
+    return flops / BF16_FLOPS * 1e3
+
+
+def _train_full(dev, card, tmp):
+    """Phase 13b: ``TRAIN_ARCH`` at full width through ``Trainer`` (bf16
+    compute, float32 masters, remat): the loss falls; a fresh Trainer
+    resumes at the last step with bit-equal parameters; a run stopped at
+    ``TRAIN_STOP`` and resumed equals the straight one (rtol 1e-6, atol
+    1e-7, the reference's own test's tolerance); 4 microbatches give a
+    first loss within 1e-2 of 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+              lr=TRAIN_LR, warmup=TRAIN_WARMUP, ckpt_every=TRAIN_CKPT_EVERY)
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    straight = Trainer(cfg, TrainConfig(ckpt_dir=os.path.join(tmp, "a"),
+                                        **kw), device=dev)
+    t = time.perf_counter()
+    hist = straight.run()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError(f"{TRAIN_ARCH}: the loss did not fall "
+                             f"({hist['loss'][0]} -> {hist['loss'][-1]})")
+    fresh = Trainer(cfg, TrainConfig(ckpt_dir=os.path.join(tmp, "a"), **kw),
+                    device=dev)
+    same = fresh.start_step == TRAIN_STEPS and all(
+        torch.equal(a, b) for a, b in zip(
+            lm.tree_leaves((straight.params, straight.opt_state)),
+            lm.tree_leaves((fresh.params, fresh.opt_state))))
+    if not same:
+        raise AssertionError(f"{TRAIN_ARCH}: a fresh Trainer resumed at "
+                             f"step {fresh.start_step} with other state")
+    del fresh
+    tc_b = TrainConfig(ckpt_dir=os.path.join(tmp, "b"), **kw)
+    Trainer(cfg, tc_b, device=dev).run(steps=TRAIN_STOP)
+    resumed = Trainer(cfg, tc_b, device=dev)
+    if resumed.start_step != TRAIN_STOP:
+        raise AssertionError(f"resumed at {resumed.start_step}")
+    resumed.run()
+    worst = 0.0
+    for a, b in zip(lm.tree_leaves(straight.params),
+                    lm.tree_leaves(resumed.params)):
+        over = (a - b).abs() - (1e-7 + 1e-6 * b.abs())
+        worst = max(worst, float(over.max()))
+    del resumed
+    _free_memory()
+    micro = Trainer(cfg, TrainConfig(microbatches=4, **kw),
+                    device=dev).run(steps=1)
+    step_ms = statistics.median(hist["step_time"][1:]) * 1e3
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    bound = _train_flop_bound_ms(cfg, straight.params, tokens, TRAIN_BATCH,
+                                 TRAIN_SEQ)
+    batch = straight._device_batch(0)
+    state = [straight.params, straight.opt_state]
+
+    def one():
+        state[0], state[1], _ = straight.step_fn(state[0], state[1], batch)
+    one()
+    busy, kernels = _profiled(one, f"{TRAIN_ARCH} train: 3 steps", "a step",
+                              card)
+    print(f"[train] {card} | {TRAIN_ARCH} ({cfg.dtype} compute, float32 "
+          f"masters, "
+          f"remat {cfg.remat}; {lm.param_numel(straight.params)} "
+          f"parameters), Trainer seq {TRAIN_SEQ} x batch {TRAIN_BATCH}, "
+          f"lr {TRAIN_LR}, warmup {TRAIN_WARMUP}, {TRAIN_STEPS} steps in "
+          f"{wall:.3f} s (checkpoints every {TRAIN_CKPT_EVERY}): loss "
+          f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; step median "
+          f"{step_ms:.3f} ms after the first ({hist['step_time'][0] * 1e3:.1f}"
+          f" ms), {tokens / step_ms * 1e3:.1f} tokens/s; FLOP bound "
+          f"{bound:.4f} ms a step at {BF16_FLOPS:.4g} FLOP/s, the median at "
+          f"{bound / step_ms:.4f} of it; peak memory {peak} bytes; a fresh "
+          f"Trainer resumed at step {TRAIN_STEPS} bit-equal; stopped at "
+          f"{TRAIN_STOP} and resumed: every parameter within rtol 1e-6 / "
+          f"atol 1e-7 of the straight run (largest excess {worst:.3e}); "
+          f"4 microbatches: first loss {micro['loss'][0]:.6f} against "
+          f"{hist['loss'][0]:.6f}")
+    if worst > 0:
+        raise AssertionError(f"{TRAIN_ARCH}: the resumed run differs from "
+                             f"the straight one beyond rtol 1e-6 / atol "
+                             f"1e-7 (by {worst})")
+    if not abs(micro["loss"][0] - hist["loss"][0]) < 1e-2:
+        raise AssertionError("4 microbatches changed the first loss")
+    return {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "bound_ms": bound, "peak_bytes": peak, "busy": busy,
+            "kernels": kernels}
+
+
+def _train_encdec(dev, card):
+    """Phase 13c: one ``make_train_step`` of ``ENC_ARCH`` at full width
+    (bf16 compute, float32 masters and AdamW state, remat), seq
+    ``ENC_TRAIN_SEQ`` x batch ``ENC_TRAIN_BATCH`` with frames from
+    ``SyntheticLM``: a finite loss, then a second step timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, lm
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import make_train_step
+    cfg = get_config(ENC_ARCH)
+    _free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)
+    n = lm.param_numel(params)
+    logits = ENC_TRAIN_BATCH * ENC_TRAIN_SEQ * cfg.vocab
+    print(f"[train] {card} | {ENC_ARCH} step, reckoned before the run: "
+          f"{n} parameters; float32 masters, gradients, m and v "
+          f"{16 * n} bytes; bf16 logits {2 * logits} bytes and their "
+          f"float32 upcast {4 * logits}")
+    opt = AdamW(lr=cosine_schedule(3e-4, 20, 100))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(cfg.vocab, ENC_TRAIN_SEQ, ENC_TRAIN_BATCH, seed=0,
+                       frames_dim=cfg.d_model)
+    ms, losses = [], []
+    for i in range(2):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        losses.append(float(met["loss"]))
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {card} | {ENC_ARCH} ({cfg.dtype} compute, float32 "
+          f"masters, "
+          f"remat {cfg.remat}) make_train_step, seq {ENC_TRAIN_SEQ} x batch "
+          f"{ENC_TRAIN_BATCH}, {ENC_TRAIN_SEQ} frames a row: losses "
+          f"{losses}, step {ms[0]:.1f} ms then {ms[1]:.1f} ms; peak memory "
+          f"{peak} bytes")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{ENC_ARCH}: a non-finite loss {losses}")
+    del params, state
+    _free_memory()
+    return {"step_ms": ms[1], "peak_bytes": peak}
+
+
+def _lm_train(dev, card):
+    """Phase 13: 13a, 13b and 13c."""
+    _train_smoke_check(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        full = _train_full(dev, card, tmp)
+    return full, _train_encdec(dev, card)
 
 
 def _free_memory():
@@ -1772,8 +2235,11 @@ def main() -> int:
     pois_modes = _poiseuille(dev, card)
     _lm_smoke_check(dev, card)
     _lm_full_width(dev, card)
-    # -- 11. this slice: the experts/MLA and SSM/hybrid families ----------
+    # -- 11. the experts/MLA and SSM/hybrid families ------------------------
     _lm_families(dev, card)
+    # -- 12-13. this slice: the encoder-decoder, then training --------------
+    _lm_encdec(dev, card)
+    _lm_train(dev, card)
 
     entries = [
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],

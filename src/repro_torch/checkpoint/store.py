@@ -15,7 +15,11 @@ is a numpy array or a tensor.  Leaf keys join the path's keys with
 ``/``, each with characters outside ``[A-Za-z0-9_.-]`` replaced by ``_``.
 Tensors are saved with their own dtype: callers that hold lattices as
 int32 bit-views convert them to the reference's uint32 words first
-(``core.carry.planes_to_reference``), as the serve engine does.
+(``core.carry.planes_to_reference``), as the serve engine does.  A
+bfloat16 leaf is written as the reference writes an ml_dtypes bfloat16
+array: an ``.npy`` of ``<V2`` raw 16-bit words, manifest dtype
+``"bfloat16"``, crc32 over those bytes; raw ``V2`` leaves load back as
+bfloat16 bit for bit (through int16 views: no ml_dtypes needed).
 
 Restore takes a *target tree*: each leaf is loaded, cast to the target
 leaf's dtype (uint32 words into an int32 target keep their bits,
@@ -144,11 +148,45 @@ def _unflatten(tree, values):
     return next(values)
 
 
+def _is_bf16(arr: np.ndarray) -> bool:
+    """Whether a host array holds bfloat16 words: an ml_dtypes bfloat16
+    array, or the raw ``V2`` that an ``.npy`` of one loads as."""
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
 def _host(leaf) -> np.ndarray:
-    """A host numpy view of ``leaf`` (no copy where it already is one)."""
+    """A host numpy view of ``leaf`` (no copy where it already is one);
+    bfloat16 as raw ``V2`` words."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().contiguous().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    arr = np.asarray(leaf)
+    return arr.view("V2") if _is_bf16(arr) else arr
+
+
+def to_tensor(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (cast to ``dtype`` when
+    given); bfloat16 words (``_is_bf16``) become a bfloat16 tensor with
+    the same bits."""
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = arr.copy(order="C")    # (ascontiguousarray makes 0-d 1-d)
+    t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+         if _is_bf16(arr) else torch.from_numpy(arr))
+    return t.to(device, dtype) if dtype is not None else t.to(device)
+
+
+def _write_npy(path: str, arr: np.ndarray) -> None:
+    """``np.save``, except that bfloat16 words get the ``<V2`` header an
+    ml_dtypes bfloat16 array is saved with (numpy's own void is ``|V2``)."""
+    if not _is_bf16(arr):
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr).tobytes())
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -195,10 +233,11 @@ def _save(directory: str, step: int, tree: Any, meta: Optional[dict],
     for key, leaf in flat.items():
         arr = _host(leaf)
         fn = _SAFE.sub("_", key) + ".npy"
-        np.save(os.path.join(tmp, fn), arr)
-        manifest["leaves"][key] = {"file": fn, "shape": list(arr.shape),
-                                   "dtype": str(arr.dtype),
-                                   "crc32": _crc(arr)}
+        _write_npy(os.path.join(tmp, fn), arr)
+        manifest["leaves"][key] = {
+            "file": fn, "shape": list(arr.shape),
+            "dtype": "bfloat16" if _is_bf16(arr) else str(arr.dtype),
+            "crc32": _crc(arr)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -331,7 +370,7 @@ def _place(arr: np.ndarray, tgt, sh):
     if arr.dtype == np.uint32 and dtype == torch.int32:
         t = carry.planes_from_reference(arr, dev)      # same bits
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev, dtype)
+        t = to_tensor(arr, dev, dtype)
     return sh.place(t) if isinstance(sh, LatticeSharding) else t
 
 

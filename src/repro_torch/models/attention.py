@@ -1,5 +1,5 @@
 """Attention blocks: GQA with bias / qk-norm / softcap / sliding window /
-padded heads, as plain PyTorch.
+padded heads / cross-attention, as plain PyTorch.
 
 Training / prefill attention is *chunked* (online softmax over KV blocks):
 peak memory is O(S * block) instead of O(S^2).  Decode takes the simple
@@ -47,7 +47,9 @@ def _head_mask(cfg, dtype, device=None):
     return ((torch.arange(he, device=device) % g_pad) < g_real).to(dtype)
 
 
-def init_attn(init: cm.Init, cfg):
+def init_attn(init: cm.Init, cfg, cross: bool = False):
+    """Attention projections; a cross-attention sub-block (``cross``, the
+    encoder-decoder's) draws no q/k/v biases."""
     d, kv, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
     h = n_heads_eff(cfg)
     p = {
@@ -56,7 +58,7 @@ def init_attn(init: cm.Init, cfg):
         "wv": init.normal((d, kv, hd)),
         "wo": init.normal((h, hd, d)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = init.zeros((h, hd))
         p["bk"] = init.zeros((kv, hd))
         p["bv"] = init.zeros((kv, hd))
@@ -66,11 +68,14 @@ def init_attn(init: cm.Init, cfg):
     return p
 
 
-def _qkv(p, x, cfg, positions):
-    """Project to q (B,S,H,hd) and k/v (B,S,KV,hd), with bias/qk-norm/rope."""
+def _qkv(p, x, cfg, positions=None, kv_x=None, rope: bool = True):
+    """Project to q (B,S,H,hd) and k/v (B,T,KV,hd) -- k/v from ``kv_x``
+    (cross-attention: the encoder's output) when given, else from ``x``
+    -- with bias/qk-norm, and rope when ``rope`` and ``positions``."""
+    kv_x = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("btd,dhk->bthk", kv_x, p["wk"].to(x.dtype))
+    v = torch.einsum("btd,dhk->bthk", kv_x, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -78,8 +83,9 @@ def _qkv(p, x, cfg, positions):
     if "qn" in p:
         q = cm.rms_norm(q, p["qn"], cfg.norm_eps)
         k = cm.rms_norm(k, p["kn"], cfg.norm_eps)
-    q = cm.apply_rope(q, positions, cfg.rope_frac, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_frac, cfg.rope_theta)
+    if rope and positions is not None:
+        q = cm.apply_rope(q, positions, cfg.rope_frac, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_frac, cfg.rope_theta)
     return q, k, v
 
 
@@ -152,10 +158,13 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, s, h, hdv).to(q.dtype)
 
 
-def attn_block(p, x, cfg, *, positions, window=0):
-    """Causal attention sub-block (projections + chunked attention + out)."""
-    q, k, v = _qkv(p, x, cfg, positions=positions)
-    o = chunked_attention(q, k, v, causal=True, window=window,
+def attn_block(p, x, cfg, *, positions, causal=True, window=0, kv_x=None,
+               rope=True):
+    """Attention sub-block (projections + chunked attention + out): causal
+    self-attention by default; the encoder's is non-causal, and
+    cross-attention takes its keys and values from ``kv_x`` without rope."""
+    q, k, v = _qkv(p, x, cfg, positions=positions, kv_x=kv_x, rope=rope)
+    o = chunked_attention(q, k, v, causal=causal, window=window,
                           cap=cfg.attn_softcap)
     hm = _head_mask(cfg, o.dtype, o.device)
     if hm is not None:
@@ -173,24 +182,33 @@ def pos_vec(pos, b: int, device) -> torch.Tensor:
     return pv.expand(b) if pv.dim() == 0 else pv
 
 
-def attn_decode(p, x, cfg, cache, pos, *, window=0):
+def attn_decode(p, x, cfg, cache, pos, *, window=0, cross=False):
     """x: (B, 1, D); cache: {"k","v"}: (B, T, KV, hd).  Returns (out, cache).
 
     ``pos`` is a scalar or per-row (B,) vector (continuous batching: slots
-    may be at different depths).  The new K/V is written at each row's own
-    position, in place: the returned cache is the one passed in."""
+    may be at different depths).  Self-attention writes the new K/V at each
+    row's own position, in place: the returned cache is the one passed in.
+    Cross-attention (``cross``) reads a static encoder-side cache, every
+    position valid; its query takes the bias but, as in the reference, not
+    the QK norm."""
     b = x.shape[0]
     pv = pos_vec(pos, b, x.device)
-    q, k1, v1 = _qkv(p, x, cfg, positions=pv[:, None])
-    rows = torch.arange(b, device=x.device)
     k, v = cache["k"], cache["v"]
-    k[rows, pv] = k1[:, 0].to(k.dtype)
-    v[rows, pv] = v1[:, 0].to(v.dtype)
     t = k.shape[1]
-    kpos = torch.arange(t, device=x.device)
-    mask = kpos[None, :] <= pv[:, None]
-    if window:
-        mask = mask & (kpos[None, :] > (pv[:, None] - window))
+    if cross:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+        if "bq" in p:
+            q = q + p["bq"].to(x.dtype)
+        mask = torch.ones((b, t), dtype=torch.bool, device=x.device)
+    else:
+        q, k1, v1 = _qkv(p, x, cfg, positions=pv[:, None])
+        rows = torch.arange(b, device=x.device)
+        k[rows, pv] = k1[:, 0].to(k.dtype)
+        v[rows, pv] = v1[:, 0].to(v.dtype)
+        kpos = torch.arange(t, device=x.device)
+        mask = kpos[None, :] <= pv[:, None]
+        if window:
+            mask = mask & (kpos[None, :] > (pv[:, None] - window))
     _, _, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh

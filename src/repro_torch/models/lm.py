@@ -1,5 +1,5 @@
-"""Model assembly for the decoder-only families: parameter init, forward,
-prefill and per-row decode.
+"""Model assembly: parameter init, training forward/loss, prefill and
+per-row decode, for every family of the reference's model zoo.
 
 Layer heterogeneity is a repeating ``cfg.layer_pattern`` cycle of kinds
 ``a`` (global attention), ``l`` (sliding-window attention), ``e``
@@ -9,17 +9,24 @@ leaf with a leading ``(n_cycles,)`` dim, the reference's layout) and the
 forward pass loops over the cycles.  As in the reference:
 
 * deepseek's dense prefix is a second, shorter stack (``params["prefix"]``,
-  ``first_dense`` layers of kind ``a`` at ``cfg.d_ff``), and its MTP
-  subtree (``params["mtp"]``) is initialised for shape parity; only
-  training (ROADMAP §1, item 11e) reads it;
+  ``first_dense`` layers of kind ``a`` at ``cfg.d_ff``), and its depth-1
+  multi-token-prediction subtree (``params["mtp"]``) adds a term to
+  ``loss_fn``;
 * ``hybrid`` (zamba2) groups the mamba layers by ``shared_attn_period``
   and applies one of the shared transformer blocks (round-robin over
   ``n_shared_blocks``) after each group;
+* ``encdec`` (seamless) adds a non-causal encoder stack
+  (``params["enc_layers"]``, ``params["enc_norm"]``) over precomputed
+  frame embeddings (the audio frontend is a stub, as in the reference)
+  and a cross-attention sub-block (``nx``, ``xattn``) in every decoder
+  layer; ``prefill`` fills ``cache["cross"]`` with each decoder layer's
+  encoder-side K/V, which ``decode_step`` reads and passes through;
 * attention is MLA when ``cfg.mla`` is set.
 
-The encoder-decoder family is not ported yet: every entry point refuses
-it with ``NotImplementedError`` naming ROADMAP item 11d.  Training
-(``loss_fn``) is item 11e.
+Training (``loss_fn``) runs ``forward(train=True)``: with ``cfg.remat``
+each cycle (each zamba2 group) is recomputed in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+around its scan bodies.  Gradients are autograd's through plain PyTorch.
 
 The decode cache is updated in place: ``decode_step`` returns the cache
 it was given.  Trees are nested dicts (and tuples, for an SSM cache's
@@ -31,6 +38,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
@@ -39,24 +47,26 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.mlp import init_mlp, mlp_block
 
-# Where each unported part of the reference's model zoo is queued.
-UNPORTED = {"encdec": "11d (encoder-decoder)"}
 KINDS = ("a", "l", "e", "m")
-
-
-def check_supported(cfg: ModelCfg) -> None:
-    """Raise ``NotImplementedError`` for the families the port does not
-    run yet (the encoder-decoder)."""
-    if cfg.family == "encdec" or cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encdec is not ported to repro_torch yet (ROADMAP "
-            f"§1 item {UNPORTED['encdec']}); the port runs the decoder-only "
-            f"families, layer kinds {KINDS}")
 
 
 def layer(stack, i):
     """Layer ``i``'s parameters or cache (views) from a stacked tree."""
     return tree_map(lambda t: t[i], stack)
+
+
+def unstack(stack):
+    """Every layer's tree of a stacked tree, as a list: one ``unbind`` a
+    leaf, whose backward stacks the layers' gradients once (indexing each
+    layer apart would add a zero-filled full stack per layer)."""
+    if isinstance(stack, dict):
+        per = {k: unstack(v) for k, v in stack.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if isinstance(stack, tuple):
+        per = [unstack(v) for v in stack]
+        return [tuple(v[i] for v in per) for i in range(len(per[0]))]
+    return list(stack.unbind(0))
 
 
 def tree_leaves(tree):
@@ -78,14 +88,31 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_unflatten(tree, values):
+    """``tree``'s structure with its leaves replaced, in ``tree_leaves``
+    order, by ``values`` (an iterable)."""
+    it = iter(values)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple):
+            return tuple(build(v) for v in node)
+        return next(it)
+
+    return build(tree)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
-def init_block(init: cm.Init, cfg: ModelCfg, kind: str, *, d_ff: int = 0):
+def init_block(init: cm.Init, cfg: ModelCfg, kind: str, *,
+               cross: bool = False, d_ff: int = 0):
     """One layer's parameters.  kind: a = attention, l = local attention,
-    e = attention + experts, m = mamba; ``d_ff`` (default ``cfg.d_ff``)
-    is the dense feed-forward width."""
+    e = attention + experts, m = mamba; ``cross`` adds a cross-attention
+    sub-block (the encoder-decoder's decoder layers); ``d_ff`` (default
+    ``cfg.d_ff``) is the dense feed-forward width."""
     if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported "
                                   f"(the port runs kinds {KINDS})")
@@ -96,6 +123,9 @@ def init_block(init: cm.Init, cfg: ModelCfg, kind: str, *, d_ff: int = 0):
         return p
     p["attn"] = attn.init_mla(init, cfg) if cfg.mla else attn.init_attn(
         init, cfg)
+    if cross:
+        p["nx"] = cm.init_norm(init, d, cfg.norm)
+        p["xattn"] = attn.init_attn(init, cfg, cross=True)
     p["n2"] = cm.init_norm(init, d, cfg.norm)
     if kind == "e":
         p["ffn"] = moe_mod.init_moe(init, cfg)
@@ -107,8 +137,11 @@ def init_block(init: cm.Init, cfg: ModelCfg, kind: str, *, d_ff: int = 0):
     return p
 
 
-def block_apply(p, x, cfg: ModelCfg, kind: str, *, positions):
-    """Pre-norm causal residual block.  Returns (x, aux_loss)."""
+def block_apply(p, x, cfg: ModelCfg, kind: str, *, positions, causal=True,
+                enc_out=None):
+    """Pre-norm residual block (causal unless ``causal`` is False: the
+    encoder's); a block with a cross-attention sub-block attends to
+    ``enc_out`` after its self-attention.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = cm.apply_norm(x, p["n1"], cfg.norm, cfg.norm_eps)
     if kind == "m":
@@ -118,10 +151,14 @@ def block_apply(p, x, cfg: ModelCfg, kind: str, *, positions):
     else:
         window = cfg.local_window if kind == "l" else 0
         a = attn.attn_block(p["attn"], h, cfg, positions=positions,
-                            window=window)
+                            causal=causal, window=window)
     if cfg.post_norms:
         a = cm.apply_norm(a, p["pn1"], cfg.norm, cfg.norm_eps)
     x = x + a
+    if "xattn" in p and enc_out is not None:
+        hx = cm.apply_norm(x, p["nx"], cfg.norm, cfg.norm_eps)
+        x = x + attn.attn_block(p["xattn"], hx, cfg, positions=None,
+                                causal=False, kv_x=enc_out, rope=False)
     h = cm.apply_norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     if kind == "e":
         f, aux = moe_mod.moe_block(p["ffn"], h, cfg)
@@ -143,7 +180,6 @@ def init_params(cfg: ModelCfg, seed: int = 0, *, device=None,
     init; the values are the port's own, except the SSM's ``A_log`` and
     ``dt_bias``, which are the reference's numpy draws)."""
     cfg.validate()
-    check_supported(cfg)
     root = cm.Init(seed, dtype, device)
     d = cfg.d_model
     tree: Dict[str, Any] = {"embed": root.normal((cfg.vocab, d))}
@@ -153,12 +189,16 @@ def init_params(cfg: ModelCfg, seed: int = 0, *, device=None,
             d_ff=cfg.d_ff)
     tree["layers"] = {
         f"{ci}_{kind}": init_block(cm.StackedInit(root, cfg.n_cycles), cfg,
-                                   kind)
+                                   kind, cross=cfg.enc_layers > 0)
         for ci, kind in enumerate(cfg.cycle)}
     if cfg.shared_attn_period:
         tree["shared"] = init_block(
             cm.StackedInit(root, cfg.n_shared_blocks), cfg, "a",
             d_ff=cfg.shared_d_ff)
+    if cfg.enc_layers:
+        tree["enc_layers"] = init_block(
+            cm.StackedInit(root, cfg.enc_layers), cfg, "a", d_ff=cfg.d_ff)
+        tree["enc_norm"] = cm.init_norm(root, d, cfg.norm)
     tree["final_norm"] = cm.init_norm(root, d, cfg.norm)
     if not cfg.tie_embeddings:
         tree["head"] = root.normal((d, cfg.vocab))
@@ -178,9 +218,11 @@ def param_numel(params) -> int:
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg, tokens):
+    # F.embedding, not indexing: its backward sums a token's rows in a
+    # fixed order on the CPU too (indexing's accumulates across threads).
     w = params["embed"]
-    x = w.to(cm.cdtype(cfg))[torch.as_tensor(tokens).to(w.device,
-                                                       torch.int64)]
+    x = F.embedding(torch.as_tensor(tokens).to(w.device, torch.int64),
+                    w.to(cm.cdtype(cfg)))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -198,18 +240,25 @@ def _head(params, cfg, x):
     return logits
 
 
-def _stack(x, stacks, cfg, *, positions, kinds=None):
+def _stack(x, stacks, cfg, *, positions, causal=True, enc_out=None,
+           kinds=None, remat=False):
     """Apply a dict of layer stacks: cycles in order, each cycle's kinds in
-    pattern order.  Returns (x, summed aux loss)."""
+    pattern order; with ``remat`` each cycle is recomputed in the backward
+    pass.  Returns (x, summed aux loss)."""
     kinds = kinds or cfg.cycle
-    names = sorted(stacks)
-    n = next(tree_leaves(stacks)).shape[0]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n):
-        for kind, name in zip(kinds, names):
-            x, a = block_apply(layer(stacks[name], i), x, cfg, kind,
-                               positions=positions)
+    per = [unstack(stacks[name]) for name in sorted(stacks)]
+
+    def cycle(h, aux, i):
+        for kind, layers in zip(kinds, per):
+            h, a = block_apply(layers[i], h, cfg, kind, positions=positions,
+                               causal=causal, enc_out=enc_out)
             aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(len(per[0])):
+        x, aux = (checkpoint(cycle, x, aux, i, use_reentrant=False) if remat
+                  else cycle(x, aux, i))
     return x, aux
 
 
@@ -222,26 +271,34 @@ def _groups(cfg):
                               for g in range(n_groups)]
 
 
-def _hybrid_stack(params, x, cfg, *, positions):
+def _hybrid_stack(params, x, cfg, *, positions, remat=False):
     """zamba2: groups of ``shared_attn_period`` mamba layers, a shared
-    transformer block (round-robin over ``n_shared_blocks``) after each."""
+    transformer block (round-robin over ``n_shared_blocks``) after each;
+    with ``remat`` each group is recomputed in the backward pass."""
     (stack,) = params["layers"].values()
     n_groups, period, shared_of = _groups(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(n_groups):
+    mamba, shared = unstack(stack), unstack(params["shared"])
+
+    def group(h, aux, g):
         for j in range(period):
-            x, a = block_apply(layer(stack, g * period + j), x, cfg, "m",
+            h, a = block_apply(mamba[g * period + j], h, cfg, "m",
                                positions=positions)
             aux = aux + a
-        x, a = block_apply(layer(params["shared"], shared_of[g]), x, cfg,
-                           "a", positions=positions)
-        aux = aux + a
+        h, a = block_apply(shared[shared_of[g]], h, cfg, "a",
+                           positions=positions)
+        return h, aux + a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(n_groups):
+        x, aux = (checkpoint(group, x, aux, g, use_reentrant=False) if remat
+                  else group(x, aux, g))
     return x, aux
 
 
 def cast_params_for_compute(params, cfg: ModelCfg):
     """Cast fp32 matrices (every leaf of 2 or more dims, stacked norms
-    included, as in the reference) to the compute dtype once, up front."""
+    included, as in the reference) to the compute dtype once, up front.
+    The cast is differentiable: gradients reach the fp32 masters."""
     dt = cm.cdtype(cfg)
     if dt == torch.float32:
         return params
@@ -250,24 +307,91 @@ def cast_params_for_compute(params, cfg: ModelCfg):
                     params)
 
 
-def forward(params, cfg: ModelCfg, batch: Dict[str, torch.Tensor]):
+def _encode(params, cfg, frames, remat=False):
+    """The encoder over precomputed frame embeddings (B, T, D): non-causal
+    blocks with rope at the frame positions, then ``enc_norm``."""
+    x = torch.as_tensor(frames, device=params["embed"].device).to(
+        cm.cdtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _stack(x, {"0": params["enc_layers"]}, cfg, positions=positions,
+                  causal=False, kinds=("a",), remat=remat)
+    return cm.apply_norm(x, params["enc_norm"], cfg.norm, cfg.norm_eps)
+
+
+def forward(params, cfg: ModelCfg, batch: Dict[str, torch.Tensor], *,
+            train: bool = False):
     """Returns (logits (B,S,V) in the compute dtype, aux_loss float32
-    scalar: the experts' summed balance term, 0 without experts)."""
-    check_supported(cfg)
+    scalar: the experts' summed balance term, 0 without experts).  The
+    encoder-decoder reads ``batch["frames"]`` (B, T, D).  ``train``
+    recomputes each cycle in the backward pass when ``cfg.remat`` is set
+    (the values are the same)."""
     params = cast_params_for_compute(params, cfg)
+    remat = train and cfg.remat
+    enc_out = (_encode(params, cfg, batch["frames"], remat)
+               if cfg.enc_layers else None)
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "prefix" in params:
         x, a = _stack(x, {"0": params["prefix"]}, cfg, positions=positions,
-                      kinds=("a",))
+                      kinds=("a",), remat=remat)
         aux = aux + a
     if cfg.family == "hybrid":
-        x, a = _hybrid_stack(params, x, cfg, positions=positions)
+        x, a = _hybrid_stack(params, x, cfg, positions=positions,
+                             remat=remat)
     else:
-        x, a = _stack(x, params["layers"], cfg, positions=positions)
+        x, a = _stack(x, params["layers"], cfg, positions=positions,
+                      enc_out=enc_out, remat=remat)
     return _head(params, cfg, x), aux + a
+
+
+def _xent(logits, labels):
+    """Mean cross-entropy ``logsumexp - gold`` in float32 over logits
+    (B,S,V) of any float dtype (bf16 ones are upcast here, so their
+    cotangent stays bf16) and int labels (B,S).  The gold logit comes
+    from ``torch.gather``: the same value as the reference's one-hot
+    masked sum, which is a device for GSPMD's vocab sharding, not for one
+    card."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    idx = torch.as_tensor(labels, device=lf.device).to(torch.int64)
+    gold = torch.gather(lf, -1, idx[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(params, cfg: ModelCfg, batch):
+    """Training loss and its metrics: ``(loss, {"ce", "aux", "loss"})``,
+    plus ``"mtp_ce"`` with deepseek's depth-1 multi-token prediction:
+    ``h_t`` from the embeddings of ``x_t`` and ``x_{t+1}`` through one
+    extra block predicts ``x_{t+2}`` with the main head, weighted by
+    ``cfg.mtp_weight`` (the reference's lightweight approximation)."""
+    params = cast_params_for_compute(params, cfg)
+    logits, aux = forward(params, cfg, batch, train=True)
+    dev = logits.device
+    labels = torch.as_tensor(batch["labels"], device=dev).to(torch.int64)
+    ce = _xent(logits, labels)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp and "mtp" in params:
+        dt = cm.cdtype(cfg)
+        tokens = torch.as_tensor(batch["tokens"], device=dev).to(torch.int64)
+        x = _embed(params, cfg, tokens)
+        nxt = F.pad(tokens[:, 1:], (0, 1))
+        h2 = torch.cat([x, _embed(params, cfg, nxt)], dim=-1)
+        h2 = torch.einsum("bsd,dp->bsp", h2, params["mtp"]["proj"].to(dt))
+        h2, _ = block_apply(params["mtp"]["block"], h2, cfg, "a",
+                            positions=torch.arange(tokens.shape[1],
+                                                   device=dev))
+        h2 = cm.apply_norm(h2, params["mtp"]["norm"], cfg.norm, cfg.norm_eps)
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        logits2 = torch.einsum("bsd,dv->bsv", h2, w.to(dt))
+        lbl2 = F.pad(labels[:, 1:], (0, 1))
+        mtp_ce = _xent(logits2[:, :-1], lbl2[:, :-1])
+        loss = loss + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +410,10 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int,
     * ssm: ``cache["ssm"] = (state (n_cycles, batch, H, N, P) float32,
       conv (n_cycles, batch, K, C))``;
     * hybrid: ``cache["ssm"]`` with leading ``(groups, period)`` dims
-      (batch axis 2) and ``cache["shared"]``, one K/V cache a group.
+      (batch axis 2) and ``cache["shared"]``, one K/V cache a group;
+    * encdec: also ``cache["cross"]``, ``{"k", "v"}`` of length 0, as in
+      the reference: ``prefill`` fills it at the encoder's true length.
     """
-    check_supported(cfg)
     device = cm.device_or_card(device)
 
     def stk(lead, one):
@@ -312,11 +437,16 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int,
         cache["prefix"] = stk((cfg.moe.first_dense,), one)
     cache["layers"] = {f"{ci}_{k}": stk((cfg.n_cycles,), one)
                        for ci, k in enumerate(cfg.cycle)}
+    if cfg.enc_layers:
+        cache["cross"] = stk((cfg.n_cycles,), attn.init_decode_cache(
+            dtype, cfg, batch, 0, device))
     return cache
 
 
-def _decode_block(p, x, cfg, kind, cache, pos):
-    """Single-token residual block against a cache (updated in place)."""
+def _decode_block(p, x, cfg, kind, cache, pos, enc_feats=None):
+    """Single-token residual block against a cache (updated in place);
+    a cross-attention sub-block reads ``enc_feats``, the layer's static
+    encoder-side K/V."""
     h = cm.apply_norm(x, p["n1"], cfg.norm, cfg.norm_eps)
     if kind == "m":
         o, _ = ssm_mod.ssm_decode(p["ssm"], h, cfg, cache)
@@ -330,6 +460,11 @@ def _decode_block(p, x, cfg, kind, cache, pos):
     if cfg.post_norms:
         a = cm.apply_norm(a, p["pn1"], cfg.norm, cfg.norm_eps)
     x = x + a
+    if "xattn" in p and enc_feats is not None:
+        hx = cm.apply_norm(x, p["nx"], cfg.norm, cfg.norm_eps)
+        cx, _ = attn.attn_decode(p["xattn"], hx, cfg, enc_feats, pos,
+                                 cross=True)
+        x = x + cx
     h = cm.apply_norm(x, p["n2"], cfg.norm, cfg.norm_eps)
     if kind == "e":
         f, _ = moe_mod.moe_block(p["ffn"], h, cfg)
@@ -342,8 +477,8 @@ def _decode_block(p, x, cfg, kind, cache, pos):
 
 def decode_step(params, cfg: ModelCfg, cache, token, pos):
     """token: (B,) ints; pos: scalar or (B,); returns (logits (B,V), cache),
-    the cache updated in place at each row's position."""
-    check_supported(cfg)
+    the cache updated in place at each row's position (the encoder-decoder's
+    ``cache["cross"]`` is read, not written)."""
     params = cast_params_for_compute(params, cfg)
     x = _embed(params, cfg, torch.as_tensor(token)[:, None])
     pv = attn.pos_vec(pos, x.shape[0], x.device)
@@ -371,9 +506,11 @@ def decode_step(params, cfg: ModelCfg, cache, token, pos):
                               layer(cache["prefix"], i), pv)
     names = sorted(params["layers"])
     for i in range(cfg.n_cycles):
+        enc = layer(cache["cross"], i) if cfg.enc_layers else None
         for kind, name in zip(cfg.cycle, names):
             x = _decode_block(layer(params["layers"][name], i), x, cfg,
-                              kind, layer(cache["layers"][name], i), pv)
+                              kind, layer(cache["layers"][name], i), pv,
+                              enc_feats=enc)
     return _head(params, cfg, x)[:, 0], cache
 
 
@@ -392,7 +529,8 @@ def _capture_kv(p, h, cfg, positions, c):
     return c
 
 
-def _prefill_attn_stack(stack, cache_stack, x, cfg, kinds, positions):
+def _prefill_attn_stack(stack, cache_stack, x, cfg, kinds, positions,
+                        enc_out=None):
     """Run the stacked layers over the prompt, capturing each layer's K/V
     into its cache before applying it."""
     names = sorted(stack)
@@ -401,7 +539,8 @@ def _prefill_attn_stack(stack, cache_stack, x, cfg, kinds, positions):
         for kind, name in zip(kinds, names):
             p = layer(stack[name], i)
             _capture_kv(p, x, cfg, positions, layer(cache_stack[name], i))
-            x, _ = block_apply(p, x, cfg, kind, positions=positions)
+            x, _ = block_apply(p, x, cfg, kind, positions=positions,
+                               enc_out=enc_out)
     return x
 
 
@@ -413,12 +552,17 @@ def prefill(params, cfg: ModelCfg, batch, max_len: int,
     Attention families capture each layer's prompt K/V (MLA: the latent)
     into the cache; the SSM and hybrid families run the chunked SSD
     forward with ``return_state`` (prompts right-padded to the chunk size
-    with dt masked to zero, so the captured state is exact)."""
-    check_supported(cfg)
+    with dt masked to zero, so the captured state is exact).  The
+    encoder-decoder encodes ``batch["frames"]`` first and stores each
+    decoder layer's cross K/V of the encoder's output in
+    ``cache["cross"]`` (in ``cache_dtype``; no bias or QK norm, as the
+    reference's)."""
     params = cast_params_for_compute(params, cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = params["embed"].device
+    enc_out = (_encode(params, cfg, batch["frames"]) if cfg.enc_layers
+               else None)
     cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, cfg, tokens, cache, cache_dtype)
@@ -429,7 +573,14 @@ def prefill(params, cfg: ModelCfg, batch, max_len: int,
                                 {"0": cache["prefix"]}, x, cfg, ("a",),
                                 positions)
     x = _prefill_attn_stack(params["layers"], cache["layers"], x, cfg,
-                            cfg.cycle, positions)
+                            cfg.cycle, positions, enc_out=enc_out)
+    if cfg.enc_layers:
+        (stack,) = params["layers"].values()
+        dt = cm.cdtype(cfg)
+        cache["cross"] = {
+            kk: torch.einsum("btd,ldhk->lbthk", enc_out,
+                             stack["xattn"][w].to(dt)).to(cache_dtype)
+            for kk, w in (("k", "wk"), ("v", "wv"))}
     logits = _head(params, cfg, x)
     return logits[:, -1], cache
 

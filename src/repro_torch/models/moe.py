@@ -122,7 +122,7 @@ def moe_block(p, x, cfg):
                        device=dev)
     w_ec[gi, flat_e, col] = torch.where(
         keep, gate.reshape(ng, tg * e.top_k), 0.0)
-    upd = y.mul_(w_ec[..., :cg, None].to(y.dtype)).to(torch.float32)
+    upd = (y * w_ec[..., :cg, None].to(y.dtype)).to(torch.float32)
     out = torch.zeros((ng, tg + 1, d), dtype=torch.float32, device=dev)
     out.index_put_((g_idx.expand_as(idx), idx), upd, accumulate=True)
     out = out[:, :tg].reshape(t, d).to(x.dtype)

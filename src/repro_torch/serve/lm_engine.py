@@ -41,7 +41,15 @@ class ServeEngine:
                  cache_dtype=torch.float32, greedy: bool = True,
                  temperature: float = 1.0, top_k: int = 0, seed: int = 0,
                  device=None):
-        lm.check_supported(cfg)
+        if cfg.enc_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder-decoder is not served by "
+                f"ServeEngine: the reference's engine cannot place a cross "
+                f"cache (its init_cache gives cache['cross'] length 0, and "
+                f"the slot write fails on the first request); serve it "
+                f"through models.lm.prefill and decode_step, as the "
+                f"reference does (an engine with a cross cache per slot is "
+                f"a feature beyond the reference, ROADMAP)")
         self.device = cm.device_or_card(device)
         for leaf in lm.tree_leaves(params):
             if leaf.device != self.device:

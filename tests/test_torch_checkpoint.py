@@ -3,8 +3,10 @@ format, so a tree saved by either store restores bit for bit in the
 other; torn and corrupt checkpoints of either make the port's
 ``latest_valid_step`` fall back; a serve engine checkpointed mid-run by
 one package resumes in the other and finishes with the reference's
-results.  Then the port's store on its own: typed errors, subsets, the
-async manager and lattices placed on a mesh."""
+results; bfloat16 leaves (an optimizer's moments) are written in the
+reference's form (raw ``<V2`` words, manifest dtype ``bfloat16``) and
+cross bit for bit.  Then the port's store on its own: typed errors,
+subsets, the async manager and lattices placed on a mesh."""
 import json
 import os
 import threading
@@ -296,3 +298,85 @@ def test_manager_snapshot_and_close_race(tmp_path):
     assert set(store._steps(d)) == {1} | set(accepted)
     assert set(accepted).isdisjoint(rejected)
     assert load_leaf(d, 1, "x").tolist() == [1, 1, 1, 1]
+
+
+def _bf16_tree(seed=4):
+    """bfloat16 leaves (every bit pattern of a random draw, a 0-d one and
+    a negative zero) beside float32 and int32 ones, as the port holds
+    them and as the reference does (ml_dtypes arrays from jax)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2 ** 16, (3, 5), dtype=np.uint16)
+    words[0, 0] = 0x8000
+    tree = {"m": {"w": torch.from_numpy(words.view(np.int16).copy()).view(
+                torch.bfloat16),
+                  "s": torch.tensor(-1.5, dtype=torch.bfloat16)},
+            "p": torch.from_numpy(rng.standard_normal(4).astype(np.float32)),
+            "step": torch.tensor(7, dtype=torch.int32)}
+    ref = {"m": {"w": np.asarray(jnp.asarray(words).view(jnp.bfloat16)),
+                 "s": np.asarray(jnp.asarray(-1.5, jnp.bfloat16))},
+           "p": tree["p"].numpy(), "step": np.int32(7)}
+    return tree, ref
+
+
+def jax_tree(ref):
+    """A numpy tree as the reference's arrays."""
+    return {k: (jax_tree(v) if isinstance(v, dict) else jnp.asarray(v))
+            for k, v in ref.items()}
+
+
+def _bits(x):
+    """A leaf's raw bytes (bfloat16 tensors through an int16 view)."""
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+        return x.numpy().tobytes()
+    return np.asarray(x).tobytes()
+
+
+def test_bf16_leaves_round_trip_bit_for_bit(tmp_path):
+    tree, _ = _bf16_tree()
+    save(str(tmp_path), 2, tree)
+    verify_checkpoint(str(tmp_path), 2)
+    info = json.load(open(os.path.join(store.step_dir(str(tmp_path), 2),
+                                       "manifest.json")))["leaves"]
+    assert info["m/w"]["dtype"] == info["m/s"]["dtype"] == "bfloat16"
+    assert np.load(os.path.join(store.step_dir(str(tmp_path), 2),
+                                info["m/w"]["file"])).dtype.str == "|V2"
+    target = store._unflatten(tree, iter(
+        [torch.zeros_like(x) for x in _leaves(tree)]))
+    got = restore(str(tmp_path), 2, target)
+    for a, b in zip(_leaves(got), _leaves(tree), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _bits(a) == _bits(b)
+    # A float32 target takes the bfloat16 values exactly.
+    wide = restore(str(tmp_path), 2, dict(target, m={
+        k: torch.zeros(v.shape) for k, v in target["m"].items()}))
+    assert torch.equal(wide["m"]["w"], tree["m"]["w"].float())
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_bf16_checkpoints_cross_bit_for_bit(tmp_path, writer):
+    tree, ref = _bf16_tree(seed=5)
+    d = str(tmp_path)
+    if writer == "port":
+        save(d, 1, tree)
+        got = jstore.restore(d, 1, jax_tree(ref))
+        assert str(got["m"]["w"].dtype) == "bfloat16"
+    else:
+        jstore.save(d, 1, jax_tree(ref))
+        got = restore(d, 1, store._unflatten(tree, iter(
+            [torch.zeros_like(x) for x in _leaves(tree)])))
+        assert got["m"]["w"].dtype == torch.bfloat16
+    for a, b in zip(_leaves(got), _leaves(tree), strict=True):
+        assert _bits(a) == _bits(b)
+
+
+def test_bf16_files_equal_the_reference(tmp_path):
+    tree, ref = _bf16_tree(seed=6)
+    save(str(tmp_path / "p"), 1, tree)
+    jstore.save(str(tmp_path / "r"), 1, jax_tree(ref))
+    p, r = (store.step_dir(str(tmp_path / x), 1) for x in "pr")
+    assert json.load(open(os.path.join(p, "manifest.json"))) == \
+        json.load(open(os.path.join(r, "manifest.json")))
+    for fn in sorted(os.listdir(p)):
+        assert open(os.path.join(p, fn), "rb").read() == \
+            open(os.path.join(r, fn), "rb").read(), fn

@@ -5,8 +5,10 @@
 The parity sweeps of ``chip_smoke.py`` at a small lattice -- periodic,
 extended-shard and precomputed-RNG mode -- the kernel against its plain
 version on the card, bit for bit; the single-device and sharded entry
-points against their plain runs on the CPU; the smoke LMs of every ported
-family through ``ServeEngine`` on the card against the CPU.  Whether a
+points against their plain runs on the CPU; the smoke LMs of every
+decoder-only family through ``ServeEngine`` on the card against the CPU,
+the encoder-decoder's prefill and decode, and one training step's loss
+and gradients.  Whether a
 card is present is decided inside the ``cuda`` fixture, so every worker
 collects the same tests; without a card they skip.
 """
@@ -259,3 +261,74 @@ def test_smoke_lm_on_card_matches_cpu(cuda, arch):
         hl, _ = decode_step(host, cfg, hc, tok, pos)
         assert (cl.cpu() - hl).abs().max() <= 1e-3
         tok, pos = hl.argmax(-1), pos + 1
+
+
+def test_encdec_smoke_prefill_and_decode_on_card_match_cpu(cuda):
+    # seamless-m4t-medium's smoke config, the same seeded float32
+    # parameters, tokens and frames on the card and the CPU: prefill's
+    # logits and cross cache, then three per-row decode steps, within
+    # 1e-3 at "highest" matmul precision.
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import decode_step, init_params, lm, prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_smoke("seamless-m4t-medium")
+    host = init_params(cfg, seed=0, device="cpu")
+    card = lm.tree_map(lambda t: t.to(cuda), host)
+    b = SyntheticLM(cfg.vocab, 24, 2, seed=7,
+                    frames_dim=cfg.d_model).batch_at(0)
+    batch = {"tokens": torch.from_numpy(b["tokens"][:, :9]),
+             "frames": torch.from_numpy(b["frames"])}
+    (cl, cc), (hl, hc) = (
+        prefill(p, cfg, {k: v.to(d) for k, v in batch.items()}, 32,
+                torch.float32)
+        for p, d in ((card, cuda), (host, torch.device("cpu"))))
+    assert (cl.cpu() - hl).abs().max() <= 1e-3
+    assert (cc["cross"]["k"].cpu() - hc["cross"]["k"]).abs().max() <= 1e-3
+    cross = cc["cross"]["v"].clone()
+    pos, tok = torch.tensor([9, 6]), hl.argmax(-1)
+    for _ in range(3):
+        cl, _ = decode_step(card, cfg, cc, tok.to(cuda), pos.to(cuda))
+        hl, _ = decode_step(host, cfg, hc, tok, pos)
+        assert (cl.cpu() - hl).abs().max() <= 1e-3
+        tok, pos = hl.argmax(-1), pos + 1
+    assert torch.equal(cc["cross"]["v"], cross)         # only read
+
+
+@pytest.mark.parametrize("arch", ["repro-100m", "deepseek-v3-671b",
+                                  "seamless-m4t-medium", "zamba2-2.7b"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    # One make_train_step from the same seeded float32 parameters and
+    # batch on the card and the CPU: the loss and every gradient leaf
+    # (each within 1e-4 of its largest magnitude), at "highest" matmul
+    # precision; experts at the no-drop capacity factor.
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params, lm, loss_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_smoke(arch)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
+    s = cfg.ssm.chunk if cfg.ssm else 32
+    host = init_params(cfg, seed=0, device="cpu")
+    batch = SyntheticLM(cfg.vocab, s, 4, seed=3,
+                        frames_dim=cfg.d_model if cfg.enc_layers else 0
+                        ).batch_at(0)
+    out = []
+    for d in (cuda, torch.device("cpu")):
+        live = lm.tree_map(lambda t: t.to(d).requires_grad_(True), host)
+        loss, _ = loss_fn(live, cfg, {k: torch.from_numpy(v).to(d)
+                                      for k, v in batch.items()})
+        loss.backward()
+        out.append((float(loss.detach()), [t.grad.cpu() if t.grad is not None
+                                  else torch.zeros_like(t.cpu())
+                                  for t in lm.tree_leaves(live)]))
+    (gl, gg), (hl, hg) = out
+    assert abs(gl - hl) <= 1e-4 * max(abs(hl), 1.0)
+    for a, b in zip(gg, hg):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()

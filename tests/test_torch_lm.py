@@ -10,10 +10,10 @@ this file takes repro-100m, internlm2-20b and gemma2-27b,
 ``test_torch_lm_archs.py`` the other three).  ``chunked_attention`` is
 held against the reference over window, softcap and KV padding, the norms
 and rotary embedding on their own, the configs and parameter counts of
-every registered arch.  Tolerance: rtol 1e-4, atol 1e-4.  The unported
-family (the encoder-decoder) must raise ``NotImplementedError``; the
-experts/MLA and SSM/hybrid families are held in ``test_torch_lm_moe.py``
-and ``test_torch_lm_ssm.py``.
+every registered arch.  Tolerance: rtol 1e-4, atol 1e-4.  The
+experts/MLA, SSM/hybrid and encoder-decoder families are held in
+``test_torch_lm_moe.py``, ``test_torch_lm_ssm.py`` and
+``test_torch_lm_encdec.py``.
 """
 import dataclasses
 
@@ -31,13 +31,11 @@ from repro.models import attention as jattn
 from repro.models import common as jcm
 from repro.models import param_count as jparam_count
 from repro_torch.configs import get_config, get_smoke, list_archs
-from repro_torch.models import (decode_step, forward, init_cache, init_params,
-                                param_count, params_from_reference, prefill)
+from repro_torch.models import param_count, params_from_reference
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 
 ARCHS = ("repro-100m", "internlm2-20b", "gemma2-27b")
-UNPORTED = ("seamless-m4t-medium",)
 close = L.close
 
 
@@ -118,19 +116,6 @@ def test_configs_and_param_count_match_reference(arch):
         assert param_count(cfg) == jparam_count(jcfg)
     assert list_archs() == jlist_archs()
     assert list_archs(True) == jlist_archs(True)
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_refuse(arch):
-    cfg = get_smoke(arch)
-    for call in (lambda: init_params(cfg),
-                 lambda: init_cache(cfg, 1, 8, torch.float32),
-                 lambda: forward({}, cfg, {"tokens": torch.zeros(1, 4)}),
-                 lambda: prefill({}, cfg, {"tokens": torch.zeros(1, 4)}, 8),
-                 lambda: decode_step({}, cfg, {}, torch.zeros(1), 0),
-                 lambda: params_from_reference({}, cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
 
 
 def test_params_from_reference_checks_the_tree():

@@ -104,7 +104,8 @@ def test_engine_needs_a_card_or_an_explicit_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(params, cfg, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="cannot place a cross "
+                       "cache"):
         ServeEngine(params, get_smoke("seamless-m4t-medium"), 2, 16,
                     device=CPU)
 
