@@ -184,7 +184,33 @@ no result line):
        TFLOP/s), a profile of three steps, peak memory;
     c. one ``make_train_step`` of seamless-m4t-medium at full width (seq
        256 x batch 4, frames from ``SyntheticLM``): a finite loss, step
-       ms and peak memory.
+       ms and peak memory;
+14. the dry-run and sharded training (``launch.dryrun``,
+    ``roofline.trace``, ``parallel``, ``Trainer(mesh=, rules=)``):
+    a. on the host, with meta tensors: ``python -m
+       repro_torch.launch.dryrun`` in a subprocess per cell, as
+       ``launch.run_all`` runs them, all three started together, each on a
+       ``fake`` process group of 256 ranks (the single-pod (16, 16)
+       production mesh): internlm2-20b x train_4k, deepseek-v3-671b x
+       decode_32k and the fhp-lattice cell at its defaults; per-device
+       FLOPs, bytes and collective bytes, the three terms on the H100's
+       rates, the bound and the trace seconds.  A cell that fails fails
+       the run;
+    b. on the card: 13b's Trainer run (same config, seed and steps) with
+       ``mesh=`` a (1, 1) ``DeviceMesh`` over a world-size-1 NCCL group
+       and ``rules=Rules(mesh)``: every leaf a DTensor, the losses equal
+       13b's within 1e-5; the median step, kernels a step and the device's
+       busy share against 13b's (DTensor's host cost); the group is
+       destroyed afterwards;
+    c. the dry-run of 14b's cell, traced at full depth on a ``fake`` group
+       of one rank: its compute term against 14b's measured step and
+       ``PERF.md`` §5's 3.7528 ms FLOP bound;
+    d. on the card: the FHP cell's recorder (``roofline.trace``) around
+       two rounds of the sharded path on the 2 x 2 mesh of slots (phase
+       3's lane 0, depth 8): its kernel launches equal the wrappers'
+       count, its exchange bytes and copies the stepper's ``EXCHANGE``,
+       its halo bytes a shard a round ``sharded_fhp_traffic``'s, and the
+       run equals the same run unrecorded, bit for bit.
 
 Every entry's ``max_abs_err`` comes from its timed launch held against the
 plain version.
@@ -271,6 +297,15 @@ TRAIN_LR, TRAIN_WARMUP, TRAIN_CKPT_EVERY, TRAIN_STOP = 3e-4, 20, 20, 20
 TRAIN_SMOKE_ATOL = 1e-4     # float32, card against CPU (13a)
 ENC_TRAIN_SEQ, ENC_TRAIN_BATCH = 256, 4
 BF16_FLOPS = 989e12         # H100 SXM datasheet, dense bf16
+# Phase 14: the dry-run (14a: three cells on the single-pod production
+# mesh, 256 fake ranks, one subprocess each, all started together) and
+# sharded training (14b-d).  PERF.md §5 holds 13b's FLOP bound from an
+# earlier run, which 14c's compute term is set beside.
+DRYRUN_CELLS = (("internlm2-20b", "train_4k"),
+                ("deepseek-v3-671b", "decode_32k"), ("fhp-lattice", "fhp"))
+DRYRUN_RANKS, DRYRUN_TIMEOUT_S = 256, 600
+PERF_TRAIN_BOUND_MS = 3.7528
+SHARDED_LOSS_ATOL = 1e-5
 SOURCE = "src/repro_torch/kernels/fhp_step/csrc/fhp_step.cu"
 REPLACES = "src/repro/kernels/fhp_step/kernel.py:330"
 
@@ -1932,7 +1967,7 @@ def _train_full(dev, card, tmp):
         raise AssertionError("4 microbatches changed the first loss")
     return {"step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
             "bound_ms": bound, "peak_bytes": peak, "busy": busy,
-            "kernels": kernels}
+            "kernels": kernels, "losses": hist["loss"]}
 
 
 def _train_encdec(dev, card):
@@ -1989,6 +2024,222 @@ def _lm_train(dev, card):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         full = _train_full(dev, card, tmp)
     return full, _train_encdec(dev, card)
+
+
+def _dryrun_cells(card):
+    """Phase 14a: ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_CELLS`` on the single-pod production mesh, a subprocess each
+    with a ``fake`` process group of ``DRYRUN_RANKS`` ranks, as
+    ``launch.run_all`` runs them; on the host, on meta tensors.  A cell
+    that fails fails the run."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               DRYRUN_DEVICES=str(DRYRUN_RANKS))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        procs = []
+        try:
+            for arch, shape in DRYRUN_CELLS:
+                path = os.path.join(tmp, f"{arch}.json")
+                procs.append((arch, shape, path, time.perf_counter(),
+                              subprocess.Popen(
+                                  [sys.executable, "-m",
+                                   "repro_torch.launch.dryrun", "--arch",
+                                   arch, "--shape", shape, "--out", path],
+                                  env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)))
+            for arch, shape, path, t0, proc in procs:
+                so, se = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+                wall = time.perf_counter() - t0
+                if proc.returncode or "DRYRUN OK" not in so:
+                    raise AssertionError(
+                        f"dry-run {arch} x {shape} failed "
+                        f"({proc.returncode}):\n{so[-2000:]}{se[-4000:]}")
+                with open(path) as f:
+                    rec = json.load(f)
+                t = rec["terms"]
+                print(f"[dryrun] {card} rates | {arch} x {shape} on "
+                      f"{rec['mesh']} ({rec['chips']} fake ranks), per "
+                      f"device: {rec['flops_per_device']:.6g} FLOPs, "
+                      f"{rec['bytes_per_device']:.6g} bytes, "
+                      f"{rec['collective_bytes_per_device']:.6g} collective "
+                      f"bytes; compute {t['compute_s']:.6g} s, memory "
+                      f"{t['memory_s']:.6g} s, collective "
+                      f"{t['collective_s']:.6g} s: bound={t['bound']}; "
+                      f"trace {rec['trace_s']} s (the process "
+                      f"{wall:.1f} s)")
+                out[arch] = rec
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _train_sharded(dev, card, base):
+    """Phase 14b: 13b's ``Trainer`` run (``TRAIN_ARCH`` at full width, the
+    same config, seed and steps) with ``mesh=`` a (1, 1) ``DeviceMesh``
+    over a world-size-1 NCCL group and ``rules=Rules(mesh)``: every
+    parameter and optimizer leaf a DTensor, each step under the rules.
+    The losses equal 13b's unsharded ones within ``SHARDED_LOSS_ATOL``;
+    the median step, kernels a step and the device's busy share, against
+    13b's, are DTensor's host cost."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import Rules
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+              lr=TRAIN_LR, warmup=TRAIN_WARMUP, ckpt_every=TRAIN_CKPT_EVERY)
+    _free_memory()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as d:
+            tr = Trainer(cfg, TrainConfig(ckpt_dir=d, **kw), mesh=mesh,
+                         rules=Rules(mesh))
+            if not isinstance(tr.params["embed"], DTensor):
+                raise AssertionError("the sharded Trainer's parameters are "
+                                     "not DTensors")
+            t = time.perf_counter()
+            hist = tr.run()
+            wall = time.perf_counter() - t
+        diff = max(abs(a - b) for a, b in zip(hist["loss"], base["losses"]))
+        step_ms = statistics.median(hist["step_time"][1:]) * 1e3
+        batch = tr._device_batch(0)
+        state = [tr.params, tr.opt_state]
+
+        def one():
+            with tr._scope():
+                state[0], state[1], _ = tr.step_fn(state[0], state[1], batch)
+        one()
+        busy, kernels = _profiled(one, f"{TRAIN_ARCH} sharded train: 3 "
+                                  f"steps", "a step", card)
+        print(f"[sharded] {card} | {TRAIN_ARCH} Trainer on a (1, 1) "
+              f"DeviceMesh (NCCL, world size 1), rules on: {TRAIN_STEPS} "
+              f"steps in {wall:.3f} s, losses {hist['loss'][0]:.6f} -> "
+              f"{hist['loss'][-1]:.6f}, largest difference from 13b's "
+              f"{diff:.3e}; step median {step_ms:.3f} ms against 13b's "
+              f"{base['step_ms']:.3f} ms ({step_ms / base['step_ms']:.3f}x);"
+              f" kernels a step {kernels} against {base['kernels']}; device "
+              f"busy {busy} of the wall against {base['busy']}")
+        if diff > SHARDED_LOSS_ATOL:
+            raise AssertionError(f"sharded losses differ from 13b's by "
+                                 f"{diff}")
+        del tr, state, batch
+    finally:
+        dist.destroy_process_group()
+        _free_memory()
+    return {"step_ms": step_ms, "busy": busy, "kernels": kernels}
+
+
+def _dryrun_train_cell(card, sharded, base):
+    """Phase 14c: the dry-run of 14b's cell -- ``TRAIN_ARCH`` at full
+    width, seq ``TRAIN_SEQ`` x batch ``TRAIN_BATCH`` on a (1, 1) mesh --
+    traced at full depth on a ``fake`` group of one rank: its compute
+    term against 14b's measured step and 13b's FLOP bound."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import install_fake_group
+    install_fake_group(1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rec = dryrun.run_cell(TRAIN_ARCH, "train_4k", mesh=mesh,
+                              cfg_override=get_config(TRAIN_ARCH),
+                              correct_scan_costs=False,
+                              batch=(TRAIN_BATCH, TRAIN_SEQ))
+    finally:
+        dist.destroy_process_group()
+    t = rec["terms"]
+    c_ms = t["compute_s"] * 1e3
+    print(f"[dryrun] {card} rates | 14b's cell ({TRAIN_ARCH}, seq "
+          f"{TRAIN_SEQ} x batch {TRAIN_BATCH}, (1, 1) mesh) traced in "
+          f"{rec['trace_s']} s: {rec['flops_per_device']:.6g} FLOPs, "
+          f"{rec['bytes_per_device']:.6g} bytes; compute {c_ms:.4f} ms, "
+          f"memory {t['memory_s'] * 1e3:.4f} ms, collective "
+          f"{t['collective_s'] * 1e3:.4f} ms: bound={t['bound']}; the "
+          f"compute term is {c_ms / sharded['step_ms']:.5f} of 14b's "
+          f"measured {sharded['step_ms']:.3f} ms and "
+          f"{c_ms / PERF_TRAIN_BOUND_MS:.4f} of PERF.md §5's "
+          f"{PERF_TRAIN_BOUND_MS} ms FLOP bound (this run's 13b bound "
+          f"{base['bound_ms']:.4f} ms)")
+    if not rec["flops_per_device"] > 0:
+        raise AssertionError("14c traced no FLOPs")
+    return rec
+
+
+def _fhp_traced(dev, card, planes):
+    """Phase 14d: the FHP cell's recorder on the sharded path of a 2 x 2
+    mesh of slots on the card (phase 3's lane 0, depth ``DEPTH``, T =
+    ``T_MAIN``, two rounds): its kernel launches equal the wrappers'
+    count, its collective-permute bytes and copies the stepper's
+    ``EXCHANGE``, its halo bytes a shard a round ``sharded_fhp_traffic``'s
+    for that shard; the run is bit-equal to the same run unrecorded."""
+    from repro_torch.core import distributed
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline import trace as rt
+    mesh = distributed.make_mesh(*MESH, dev)
+    x = planes[0]
+    rounds, shards = 2, mesh.size
+    run = distributed.make_run(mesh, rounds * DEPTH, depth=DEPTH,
+                               p_force=P_FORCE, steps_per_launch=T_MAIN)
+    want = run(x, 0)
+    distributed.EXCHANGE.clear()
+    _reset_counts()
+    with rt.TraceRecorder() as rec:
+        got = run(x, 0)
+    torch.cuda.synchronize()
+    launches, modes = _counts()
+    kernels = [r for r in rec.ops if r.name.startswith("fhp_step")]
+    cb = rt.collective_bytes(rec)["collective-permute"]
+    hl, wdl = HEIGHT // MESH[0][0], WIDTH // 32 // MESH[0][1]
+    model = analysis.sharded_fhp_traffic(hl, wdl, depth=DEPTH, T=T_MAIN,
+                                         block_rows=T_MAIN)
+    per = cb["operand_bytes"] / (shards * rounds)
+    print(f"[dryrun] {card} | 14d: {rounds} rounds of the 2 x 2 sharded "
+          f"path on the card under the recorder: {len(kernels)} kernel "
+          f"ops recorded, {launches} launched ({modes}); "
+          f"{cb['count']} ring copies of {cb['operand_bytes']:.0f} bytes "
+          f"recorded, the stepper counted {distributed.EXCHANGE['copies']}"
+          f" of {distributed.EXCHANGE['bytes']}; {per:.0f} halo bytes a "
+          f"shard a round against sharded_fhp_traffic's "
+          f"{model['ici_bytes_per_exchange']:.0f}; bit-equal to the "
+          f"unrecorded run: {torch.equal(got, want)}")
+    if not (launches > 0 and len(kernels) == launches):
+        raise AssertionError(f"recorded {len(kernels)} kernel ops, "
+                             f"launched {launches}")
+    if (cb["operand_bytes"] != distributed.EXCHANGE["bytes"]
+            or cb["count"] != distributed.EXCHANGE["copies"]):
+        raise AssertionError("the recorder's exchange differs from the "
+                             "stepper's count")
+    if per != model["ici_bytes_per_exchange"]:
+        raise AssertionError(f"halo bytes {per} a shard a round, modeled "
+                             f"{model['ici_bytes_per_exchange']}")
+    if not torch.equal(got, want):
+        raise AssertionError("the recorded run differs from the unrecorded")
+    return launches
+
+
+def _sharded_train(dev, card, base, planes):
+    """Phase 14: 14a-d."""
+    _dryrun_cells(card)
+    sharded = _train_sharded(dev, card, base)
+    _dryrun_train_cell(card, sharded, base)
+    _fhp_traced(dev, card, planes)
 
 
 def _free_memory():
@@ -2239,7 +2490,9 @@ def main() -> int:
     _lm_families(dev, card)
     # -- 12-13. this slice: the encoder-decoder, then training --------------
     _lm_encdec(dev, card)
-    _lm_train(dev, card)
+    train_full, _ = _lm_train(dev, card)
+    # -- 14. this slice: the dry-run and sharded training -------------------
+    _sharded_train(dev, card, train_full, planes)
 
     entries = [
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],

@@ -33,6 +33,7 @@ to compare against.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import math
@@ -43,8 +44,13 @@ import torch
 
 from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import ops
+from repro_torch.roofline import trace as rtrace
 
 Axes = Union[str, Tuple[str, ...]]
+
+# The halo exchange's part copies and their bytes since the count was last
+# cleared (every ring of every round; a shard's tile never moves).
+EXCHANGE: collections.Counter = collections.Counter()
 Grid = Tuple[Tuple[torch.Tensor, ...], ...]     # grid[iy][ix]
 
 
@@ -213,13 +219,20 @@ def _ring(n: int, up: bool):
 def _ppermute(parts: Grid, axis: int, perm, devices) -> list:
     """``lax.ppermute`` along one axis of the shard grid (0: y, 1: x):
     for each ``(src, dst)`` of ``perm`` the part at index ``src`` moves to
-    index ``dst``, onto that slot's device."""
+    index ``dst``, onto that slot's device.  Each part moved adds to
+    ``EXCHANGE`` and is reported to an active roofline recorder as a
+    ``collective-permute`` of its bytes."""
     out = [list(row) for row in parts]
     for src, dst in perm:
         for k in range(len(parts[0]) if axis == 0 else len(parts)):
             (sy, sx), (dy, dx) = (((src, k), (dst, k)) if axis == 0
                                   else ((k, src), (k, dst)))
-            out[dy][dx] = parts[sy][sx].to(devices[dy][dx])
+            part = parts[sy][sx]
+            nbytes = part.numel() * part.element_size()
+            EXCHANGE["copies"] += 1
+            EXCHANGE["bytes"] += nbytes
+            rtrace.note_collective("collective-permute", nbytes)
+            out[dy][dx] = part.to(devices[dy][dx])
     return out
 
 

@@ -15,6 +15,7 @@ import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 
 def _mix(x: np.ndarray) -> np.ndarray:
@@ -66,3 +67,19 @@ class SyntheticLM:
         per = self.global_batch // process_count
         return self.batch_at(step, process_index * per,
                              (process_index + 1) * per)
+
+
+def make_batch_specs(cfg, seq_len: int, global_batch: int):
+    """``(shapes, logical axes)`` of one global batch, for dry-runs: meta
+    tensors (no storage) with the reference's shapes and dtypes, and the
+    reference's axes."""
+    spec = lambda *shape, dtype=torch.int32: torch.empty(
+        shape, dtype=dtype, device="meta")
+    shapes = {"tokens": spec(global_batch, seq_len),
+              "labels": spec(global_batch, seq_len)}
+    axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if getattr(cfg, "frontend", "tokens") == "frames":
+        shapes["frames"] = spec(global_batch, seq_len, cfg.d_model,
+                                dtype=torch.float32)
+        axes["frames"] = ("batch", None, None)
+    return shapes, axes

@@ -42,6 +42,7 @@ from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import build, codegen
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
 from repro_torch.roofline import analysis as _roofline
+from repro_torch.roofline import trace as rtrace
 
 # Kernel launches since the count was last cleared, by mode ("periodic",
 # "static_solid", "extended", "extended_static_solid", "precomputed_rng");
@@ -436,23 +437,42 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
                            record_steps=rs, extended=extended, hg=hg,
                            wdg=wdg, moment_bounds=bounds, chi=chi,
                            accel=acc)
-    elif planes.device.type == "cuda":
+    elif planes.device.type == "cuda" or (planes.device.type == "meta"
+                                          and rtrace.active() is not None):
+        # Under a roofline recorder (a dry-run) a meta tensor stands for a
+        # launch that is recorded, not run.
         mode = ("extended" if extended else
                 "precomputed_rng" if chi is not None or acc is not None
                 else "periodic")
-        out = _launch(planes, solid, chi, acc, _RULE_ID[variant],
-                      _MODE_ID[mode], t, y0, xw0, hg or 0, wdg or 0, bh, bw,
-                      T, prng.quantize_p(p_force), rs,
-                      ms.n_moments if rs else 0, bounds)
+        if planes.device.type == "cuda":
+            out = _launch(planes, solid, chi, acc, _RULE_ID[variant],
+                          _MODE_ID[mode], t, y0, xw0, hg or 0, wdg or 0, bh,
+                          bw, T, prng.quantize_p(p_force), rs,
+                          ms.n_moments if rs else 0, bounds)
+        else:
+            # A dry-run's shapes: what the launch would return, no launch.
+            out = torch.empty_like(planes)
+            if rs:
+                out = (out, torch.empty((b, len(rs), ms.n_moments),
+                                        dtype=torch.int32, device="meta"))
         if static_solid:
             mode = "static_solid" if mode == "periodic" else \
                 "extended_static_solid"
-        LAUNCHES[mode] += 1
-        if rs:
-            LAUNCHES["moments"] += 1
+        # The launch is one op no dispatch mode sees: report its bytes.
+        reads = [planes, solid, chi, acc]
+        rtrace.note_kernel(
+            f"fhp_step[{mode}]",
+            sum(x.numel() * x.element_size() for x in reads if x is not None),
+            sum(x.numel() * x.element_size()
+                for x in (out if rs else (out,))))
+        if planes.device.type == "cuda":
+            LAUNCHES[mode] += 1
+            if rs:
+                LAUNCHES["moments"] += 1
     else:
         raise ValueError(f"fhp_step_cuda runs on CUDA tensors (and its plain "
-                         f"version on CPU tensors), not {planes.device}")
+                         f"version on CPU tensors; on meta tensors under a "
+                         f"roofline recorder), not {planes.device}")
     if rs:
         p, m = out
         return (p[0], m[0]) if squeeze else (p, m)

@@ -2,16 +2,23 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch repro-100m \
         --steps 300 --seq-len 512 --global-batch 8 [--smoke] \
-        [--ckpt-dir /tmp/ckpt] [--device cpu]
+        [--ckpt-dir /tmp/ckpt] [--device cpu] [--mesh none|test|prod]
 
 The reference's flags; the model trains on the card unless ``--device``
-names another device (no fallback to the CPU).  ``--mesh`` takes ``none``
-only: sharded training comes with ROADMAP §1 item 11f.
+names another device (no fallback to the CPU).  ``--mesh test`` (4 x 2)
+and ``--mesh prod`` (16 x 16) train sharded, one process per rank, each
+started by ``torchrun`` (the process group comes from its environment:
+gloo on the CPU, NCCL on cards, one card a rank); the group must have
+the mesh's size:
+
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m \
+        repro_torch.launch.train --smoke --mesh test --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 
@@ -26,14 +33,23 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", default="none", choices=["none"])
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "test", "prod"])
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (no fallback to the CPU)")
     args = ap.parse_args(argv)
+    if args.mesh != "none" and "WORLD_SIZE" not in os.environ:
+        ap.error(f"--mesh {args.mesh} runs one process per rank: start it "
+                 f"with torchrun --nproc-per-node <ranks>")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(message)s")
+    import torch
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    from repro_torch.models.common import device_or_card
     from repro_torch.train import TrainConfig, Trainer
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -41,11 +57,23 @@ def main(argv=None) -> int:
                        microbatches=args.microbatches, steps=args.steps,
                        lr=args.lr, ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every)
-    trainer = Trainer(cfg, tcfg, device=args.device)
+    mesh, device = None, args.device
+    if args.mesh != "none":
+        kind = device_or_card(device).type
+        if kind == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            device = None
+        dist.init_process_group("nccl" if kind == "cuda" else "gloo")
+        mesh = {"test": make_test_mesh, "prod": make_production_mesh}[
+            args.mesh](device_type=kind)
+    trainer = Trainer(cfg, tcfg, mesh=mesh, device=device)
     hist = trainer.run()
-    print(f"final loss {hist['loss'][-1]:.4f} "
-          f"(first {hist['loss'][0]:.4f}); "
-          f"mean step {1e3 * sum(hist['step_time'][1:]) / max(len(hist['step_time']) - 1, 1):.0f} ms")
+    if mesh is None or dist.get_rank() == 0:
+        print(f"final loss {hist['loss'][-1]:.4f} "
+              f"(first {hist['loss'][0]:.4f}); "
+              f"mean step {1e3 * sum(hist['step_time'][1:]) / max(len(hist['step_time']) - 1, 1):.0f} ms")
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
 
 

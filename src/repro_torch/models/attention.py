@@ -18,8 +18,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import common as cm
+from repro_torch.parallel import context
 
 NEG = -1e30
 PAD_POSITION = 2 ** 30      # position of padded KV slots (always masked)
@@ -53,19 +56,48 @@ def init_attn(init: cm.Init, cfg, cross: bool = False):
     d, kv, hd = cfg.d_model, cfg.n_kv_heads, cfg.hd
     h = n_heads_eff(cfg)
     p = {
-        "wq": init.normal((d, h, hd)),
-        "wk": init.normal((d, kv, hd)),
-        "wv": init.normal((d, kv, hd)),
-        "wo": init.normal((h, hd, d)),
+        "wq": init.normal((d, h, hd), ("embed", "heads", None)),
+        "wk": init.normal((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": init.normal((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": init.normal((h, hd, d), ("heads", None, "embed")),
     }
     if cfg.qkv_bias and not cross:
-        p["bq"] = init.zeros((h, hd))
-        p["bk"] = init.zeros((kv, hd))
-        p["bv"] = init.zeros((kv, hd))
+        p["bq"] = init.zeros((h, hd), ("heads", None))
+        p["bk"] = init.zeros((kv, hd), ("kv_heads", None))
+        p["bv"] = init.zeros((kv, hd), ("kv_heads", None))
     if cfg.qk_norm:
-        p["qn"] = init.zeros((hd,))
-        p["kn"] = init.zeros((hd,))
+        p["qn"] = init.zeros((hd,), (None,))
+        p["kn"] = init.zeros((hd,), (None,))
     return p
+
+
+def heads_proj(x, w, name: str):
+    """``einsum("bsd,dhk->bshk", x, w)`` in ``x``'s dtype; sharded, the
+    heads on the placement the rules give the logical ``name``."""
+    return cm.einsum("bsd,dhk->bshk", x, w.to(x.dtype),
+                     ("batch", "seq", None), (None, name, None))
+
+
+def heads_out(o, w):
+    """``einsum("bshk,hkd->bsd", o, w)`` in ``o``'s dtype (the output
+    projection); sharded, summed over the heads' axis here, in ``o``'s
+    dtype, onto the batch (and sequence) placement."""
+    y = cm.einsum("bshk,hkd->bsd", o, w.to(o.dtype),
+                  ("batch", "seq", "heads", None), ("heads", None, None))
+    return context.constrain(y, ("batch", "seq", None))
+
+
+def group_heads(q, kvh: int):
+    """(B, S, H, hd) queries as (B, S, KV, G, hd), head h in group h //
+    G.  On DTensors under installed rules the heads first take the
+    placement the rules give the ``kv_heads`` (a mesh axis that divides H
+    but not KV could not be split over the two dims)."""
+    b, s, h, hd = q.shape
+    rules = context.current_rules()
+    if rules is not None and isinstance(q, DTensor):
+        q = q.redistribute(q.device_mesh, rules.sharding(
+            (b, s, kvh, hd), ("batch", "seq", "kv_heads", None)))
+    return q.reshape(b, s, kvh, h // kvh, hd)
 
 
 def _qkv(p, x, cfg, positions=None, kv_x=None, rope: bool = True):
@@ -73,9 +105,9 @@ def _qkv(p, x, cfg, positions=None, kv_x=None, rope: bool = True):
     (cross-attention: the encoder's output) when given, else from ``x``
     -- with bias/qk-norm, and rope when ``rope`` and ``positions``."""
     kv_x = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("btd,dhk->bthk", kv_x, p["wk"].to(x.dtype))
-    v = torch.einsum("btd,dhk->bthk", kv_x, p["wv"].to(x.dtype))
+    q = heads_proj(x, p["wq"], "heads")
+    k = heads_proj(kv_x, p["wk"], "kv_heads")
+    v = heads_proj(kv_x, p["wv"], "kv_heads")
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -117,7 +149,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         t = t + pad
     nc = t // bk
-    qg = q.reshape(b, s, kvh, g, hd)
+    qg = group_heads(q, kvh)
     scale = hd ** -0.5
     if q_positions is None:
         q_positions = torch.arange(s, device=dev)
@@ -158,18 +190,90 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, s, h, hdv).to(q.dtype)
 
 
+def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0):
+    """``chunked_attention`` of (B, S, H, hd) queries against (B, T, KV,
+    hd) keys and values.  On DTensors under installed rules each device
+    runs it on its own rows and heads (``local_map``): the batch on its
+    data axes, a sequence shard of the queries at its global positions,
+    and the heads on the axis that shards the KV heads -- or, where only
+    the query heads divide that axis, each device's query heads with the
+    KV heads of their groups (the gradients of the shared K/V are then
+    summed over the axis)."""
+    rules = context.current_rules()
+    if rules is None or not isinstance(q, DTensor):
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 cap=cap)
+    mesh = q.device_mesh
+    b, s, h, _ = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    rows = rules.sharding((b, s), ("batch", "seq"))
+    kvp = rules.sharding((b, t, kvh), ("batch", None, "kv_heads"))
+    hp = rules.sharding((b, s, h), ("batch", "seq", "heads"))
+    qpl, kpl, kgrad = [], [], []
+    seq_dim = pick_dim = None
+    for j in range(mesh.ndim):
+        hl = h // mesh.size(j)
+        if rows[j].is_shard():
+            qpl.append(rows[j])
+            if rows[j].dim == 0:
+                kpl.append(Shard(0))
+                kgrad.append(Shard(0))
+            else:                       # a sequence shard of the queries
+                seq_dim = j
+                kpl.append(Replicate())
+                kgrad.append(Partial())
+        elif kvp[j].is_shard():
+            qpl.append(Shard(2))
+            kpl.append(Shard(2))
+            kgrad.append(Shard(2))
+        elif hp[j].is_shard() and (hl % g == 0 or g % hl == 0):
+            pick_dim = j
+            qpl.append(Shard(2))
+            kpl.append(Replicate())
+            kgrad.append(Partial())
+        else:
+            qpl.append(Replicate())
+            kpl.append(Replicate())
+            kgrad.append(Replicate())
+
+    def local(ql, kl, vl):
+        if pick_dim is not None:
+            kv0 = mesh.get_local_rank(pick_dim) * ql.shape[2] // g
+            nkv = max(ql.shape[2] // g, 1)
+            kl, vl = kl[:, :, kv0:kv0 + nkv], vl[:, :, kv0:kv0 + nkv]
+        qpos = None
+        if seq_dim is not None:
+            sl = ql.shape[1]
+            qpos = torch.arange(sl, device=ql.device) \
+                + mesh.get_local_rank(seq_dim) * sl
+        return chunked_attention(ql, kl, vl, causal=causal, window=window,
+                                 cap=cap, q_positions=qpos)
+
+    qpl, kpl, kgrad = tuple(qpl), tuple(kpl), tuple(kgrad)
+    return local_map(local, out_placements=(qpl,),
+                     in_placements=(qpl, kpl, kpl),
+                     in_grad_placements=(qpl, kgrad, kgrad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def attn_block(p, x, cfg, *, positions, causal=True, window=0, kv_x=None,
                rope=True):
     """Attention sub-block (projections + chunked attention + out): causal
     self-attention by default; the encoder's is non-causal, and
     cross-attention takes its keys and values from ``kv_x`` without rope."""
     q, k, v = _qkv(p, x, cfg, positions=positions, kv_x=kv_x, rope=rope)
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          cap=cfg.attn_softcap)
+    if cfg.seq_parallel:
+        # Activations are sequence-sharded; attention needs the whole K/V:
+        # one gather instead of the tensor-parallel reductions.
+        k = context.constrain(k, ("batch", None, None, None))
+        v = context.constrain(v, ("batch", None, None, None))
+    o = attention(q, k, v, causal=causal, window=window,
+                  cap=cfg.attn_softcap)
     hm = _head_mask(cfg, o.dtype, o.device)
     if hm is not None:
         o = o * hm[None, None, :, None]
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return heads_out(o, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +284,20 @@ def pos_vec(pos, b: int, device) -> torch.Tensor:
     """Normalise scalar-or-(B,) decode positions to an int64 (B,) vector."""
     pv = torch.as_tensor(pos, device=device).to(torch.int64)
     return pv.expand(b) if pv.dim() == 0 else pv
+
+
+def write_rows(buf, pv, new):
+    """``buf[b, pv[b]] = new[b]`` for every row ``b``, in place.  On a
+    DTensor cache the write is a select over the positions (an indexed
+    write has no sharding strategy that keeps the cache's placement)."""
+    if isinstance(buf, DTensor):
+        hit = torch.arange(buf.shape[1], device=pv.device)[None, :] \
+            == pv[:, None]
+        hit = hit.reshape(hit.shape + (1,) * (buf.dim() - 2))
+        buf.copy_(torch.where(hit, new[:, None].to(buf.dtype), buf))
+    else:
+        buf[torch.arange(buf.shape[0], device=buf.device), pv] = \
+            new.to(buf.dtype)
 
 
 def attn_decode(p, x, cfg, cache, pos, *, window=0, cross=False):
@@ -196,15 +314,14 @@ def attn_decode(p, x, cfg, cache, pos, *, window=0, cross=False):
     k, v = cache["k"], cache["v"]
     t = k.shape[1]
     if cross:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+        q = heads_proj(x, p["wq"], "heads")
         if "bq" in p:
             q = q + p["bq"].to(x.dtype)
         mask = torch.ones((b, t), dtype=torch.bool, device=x.device)
     else:
         q, k1, v1 = _qkv(p, x, cfg, positions=pv[:, None])
-        rows = torch.arange(b, device=x.device)
-        k[rows, pv] = k1[:, 0].to(k.dtype)
-        v[rows, pv] = v1[:, 0].to(v.dtype)
+        write_rows(k, pv, k1[:, 0])
+        write_rows(v, pv, v1[:, 0])
         kpos = torch.arange(t, device=x.device)
         mask = kpos[None, :] <= pv[:, None]
         if window:
@@ -212,7 +329,7 @@ def attn_decode(p, x, cfg, cache, pos, *, window=0, cross=False):
     _, _, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
-    qg = q.reshape(b, 1, kvh, g, hd)
+    qg = group_heads(q, kvh)
     sc = _scores(qg, k.to(q.dtype)) * (hd ** -0.5)
     if cfg.attn_softcap:
         sc = cm.softcap(sc, cfg.attn_softcap)
@@ -224,7 +341,7 @@ def attn_decode(p, x, cfg, cache, pos, *, window=0, cross=False):
     hm = _head_mask(cfg, o.dtype, o.device)
     if hm is not None:
         o = o * hm[None, None, :, None]
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    out = heads_out(o, p["wo"])
     return out, cache
 
 
@@ -246,15 +363,17 @@ def init_mla(init: cm.Init, cfg):
     m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
     qk = m.nope_dim + m.rope_dim
     return {
-        "wdq": init.normal((d, m.q_lora)),
-        "qn": init.zeros((m.q_lora,)),
-        "wuq": init.normal((m.q_lora, h, qk)),
-        "wdkv": init.normal((d, m.kv_lora)),
-        "kvn": init.zeros((m.kv_lora,)),
-        "wkr": init.normal((d, m.rope_dim)),
-        "wuk": init.normal((m.kv_lora, h, m.nope_dim)),
-        "wuv": init.normal((m.kv_lora, h, m.v_dim)),
-        "wo": init.normal((h, m.v_dim, d)),
+        "wdq": init.normal((d, m.q_lora), ("embed", None)),
+        "qn": init.zeros((m.q_lora,), (None,)),
+        "wuq": init.normal((m.q_lora, h, qk), (None, "heads", None)),
+        "wdkv": init.normal((d, m.kv_lora), ("embed", None)),
+        "kvn": init.zeros((m.kv_lora,), (None,)),
+        "wkr": init.normal((d, m.rope_dim), ("embed", None)),
+        "wuk": init.normal((m.kv_lora, h, m.nope_dim),
+                           (None, "heads", None)),
+        "wuv": init.normal((m.kv_lora, h, m.v_dim),
+                           (None, "heads", None)),
+        "wo": init.normal((h, m.v_dim, d), ("heads", None, "embed")),
     }
 
 
@@ -292,7 +411,7 @@ def mla_block(p, x, cfg, *, positions):
     k_rope = kr[:, :, None, :].expand(kr.shape[:2] + (h, m.rope_dim))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope], dim=-1)
-    o = chunked_attention(q, k, v, causal=True)
+    o = attention(q, k, v, causal=True)
     return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype))
 
 
@@ -306,10 +425,9 @@ def mla_decode(p, x, cfg, cache, pos):
     pv = pos_vec(pos, b, x.device)
     q_nope, q_rope = _mla_qkr(p, x, cfg, pv[:, None])
     c1, kr1 = _mla_latent(p, x, cfg, pv[:, None])
-    rows = torch.arange(b, device=x.device)
     c, kr = cache["c"], cache["kr"]
-    c[rows, pv] = c1[:, 0].to(c.dtype)
-    kr[rows, pv] = kr1[:, 0].to(kr.dtype)
+    write_rows(c, pv, c1[:, 0])
+    write_rows(kr, pv, kr1[:, 0])
     # Absorb W_uk into q: scores on the latent side, fp32 from
     # compute-dtype operands.
     q_lat = torch.einsum("bshk,chk->bshc", q_nope, p["wuk"].to(x.dtype))

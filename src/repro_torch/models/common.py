@@ -3,13 +3,46 @@ embeddings and numeric helpers, as plain functions on tensors.
 
 Parameters are nested dicts of tensors with the reference's leaf names
 and layouts (``repro.models``), so a reference tree carries over leaf for
-leaf (``models.convert``).  There are no logical sharding axes: the port
-runs a model on one device.
+leaf (``models.convert``).  Every leaf is drawn with its *logical axes*
+(one name or None per dim, the reference's), which the init functions
+pass to :class:`Init`; ``record_axes`` collects them, and
+``lm.param_axes`` builds the axes tree beside a parameter tree, for the
+sharding rules (``repro_torch.parallel``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
+
+# While ``record_axes`` is active: id(leaf) -> (leaf, logical axes) of
+# every leaf an Init draws (the leaf is held so its id stays unique).
+_AXES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_axes", default=None)
+
+
+@contextlib.contextmanager
+def record_axes():
+    """Collect the logical axes of every leaf drawn inside the block:
+    yields the dict ``id(leaf) -> (leaf, axes)``."""
+    rec: dict = {}
+    tok = _AXES.set(rec)
+    try:
+        yield rec
+    finally:
+        _AXES.reset(tok)
+
+
+def _leaf(t: torch.Tensor, axes) -> torch.Tensor:
+    axes = tuple(axes)
+    if len(axes) != t.dim():
+        raise ValueError(f"logical axes {axes} for a {t.dim()}-dim leaf")
+    rec = _AXES.get()
+    if rec is not None:
+        rec[id(t)] = (t, axes)
+    return t
 
 
 def device_or_card(device) -> torch.device:
@@ -42,44 +75,52 @@ class Init:
             self.gen = torch.Generator(device=self.device)
             self.gen.manual_seed(int(seed))
 
-    def normal(self, shape, scale=0.02):
+    def normal(self, shape, axes, scale=0.02):
         v = torch.randn(tuple(shape), generator=self.gen, dtype=self.dtype,
                         device=self.device)
-        return v.mul_(scale)
+        return _leaf(v.mul_(scale), axes)
 
-    def zeros(self, shape):
-        return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
+    def zeros(self, shape, axes):
+        return _leaf(torch.zeros(tuple(shape), dtype=self.dtype,
+                                 device=self.device), axes)
 
-    def ones(self, shape):
-        return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+    def ones(self, shape, axes):
+        return _leaf(torch.ones(tuple(shape), dtype=self.dtype,
+                                device=self.device), axes)
 
-    def const(self, value):
+    def const(self, value, axes):
         """A leaf holding ``value`` (host numbers, rounded to ``dtype``)."""
-        return torch.as_tensor(np.asarray(value), dtype=self.dtype).to(
-            self.device)
+        return _leaf(torch.as_tensor(np.asarray(value), dtype=self.dtype).to(
+            self.device), axes)
 
 
 class StackedInit(Init):
-    """Init that prepends a ``(layers,)`` dim to every leaf it draws."""
+    """Init that prepends a ``(layers,)`` dim to every leaf it draws (and
+    the logical axis ``"layers"`` to its axes)."""
 
     def __init__(self, parent: Init, n: int):
         self.dtype, self.device, self.gen = (parent.dtype, parent.device,
                                              parent.gen)
         self.n = n
 
-    def normal(self, shape, scale=0.02):
-        return super().normal((self.n,) + tuple(shape), scale)
+    def normal(self, shape, axes, scale=0.02):
+        return super().normal((self.n,) + tuple(shape),
+                              ("layers",) + tuple(axes), scale)
 
-    def zeros(self, shape):
-        return super().zeros((self.n,) + tuple(shape))
+    def zeros(self, shape, axes):
+        return super().zeros((self.n,) + tuple(shape),
+                             ("layers",) + tuple(axes))
 
-    def ones(self, shape):
-        return super().ones((self.n,) + tuple(shape))
+    def ones(self, shape, axes):
+        return super().ones((self.n,) + tuple(shape),
+                            ("layers",) + tuple(axes))
 
-    def const(self, value):
+    def const(self, value, axes):
         # One copy per layer, each its own storage (not an expanded view).
-        v = super().const(value)
-        return v.expand((self.n,) + tuple(v.shape)).clone()
+        v = torch.as_tensor(np.asarray(value), dtype=self.dtype).to(
+            self.device)
+        return _leaf(v.expand((self.n,) + tuple(v.shape)).clone(),
+                     ("layers",) + tuple(axes))
 
 
 # ---------------------------------------------------------------------------
@@ -110,8 +151,9 @@ def apply_norm(x, p, kind: str, eps: float):
 
 def init_norm(init: Init, d: int, kind: str):
     if kind == "layer":
-        return {"w": init.ones((d,)), "b": init.zeros((d,))}
-    return {"w": init.zeros((d,))}  # rms stored as (1 + w)
+        return {"w": init.ones((d,), (None,)),
+                "b": init.zeros((d,), (None,))}
+    return {"w": init.zeros((d,), (None,))}  # rms stored as (1 + w)
 
 
 def softcap(x, cap: float):
@@ -148,6 +190,19 @@ def apply_rope(x, positions, frac=1.0, theta=10000.0):
     o1 = x1 * cos - x2 * sin
     o2 = x2 * cos + x1 * sin
     return torch.cat([o1.to(x.dtype), o2.to(x.dtype), xp], dim=-1)
+
+
+def einsum(eq: str, x, w, x_axes, w_axes):
+    """``torch.einsum(eq, x, w)``; on DTensors under installed sharding
+    rules a ``parallel.context.sharded_einsum``, each operand placed by
+    its logical axes (DTensor's own choice for a matmul may replicate the
+    computation over an axis the weight is sharded on)."""
+    from repro_torch.parallel import context
+    from torch.distributed.tensor import DTensor
+
+    if context.current_rules() is None or not isinstance(x, DTensor):
+        return torch.einsum(eq, x, w)
+    return context.sharded_einsum(eq, x, w, x_axes, w_axes)
 
 
 def silu(x):

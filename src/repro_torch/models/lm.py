@@ -34,10 +34,13 @@ it was given.  Trees are nested dicts (and tuples, for an SSM cache's
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
@@ -46,6 +49,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.mlp import init_mlp, mlp_block
+from repro_torch.parallel import context
 
 KINDS = ("a", "l", "e", "m")
 
@@ -143,6 +147,8 @@ def block_apply(p, x, cfg: ModelCfg, kind: str, *, positions, causal=True,
     encoder's); a block with a cross-attention sub-block attends to
     ``enc_out`` after its self-attention.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.seq_parallel:
+        x = context.constrain(x, ("batch", "seq", None))
     h = cm.apply_norm(x, p["n1"], cfg.norm, cfg.norm_eps)
     if kind == "m":
         return x + ssm_mod.ssm_block(p["ssm"], h, cfg), aux
@@ -182,7 +188,8 @@ def init_params(cfg: ModelCfg, seed: int = 0, *, device=None,
     cfg.validate()
     root = cm.Init(seed, dtype, device)
     d = cfg.d_model
-    tree: Dict[str, Any] = {"embed": root.normal((cfg.vocab, d))}
+    tree: Dict[str, Any] = {"embed": root.normal((cfg.vocab, d),
+                                                ("vocab", "embed"))}
     if cfg.moe and cfg.moe.first_dense:
         tree["prefix"] = init_block(
             cm.StackedInit(root, cfg.moe.first_dense), cfg, "a",
@@ -201,12 +208,26 @@ def init_params(cfg: ModelCfg, seed: int = 0, *, device=None,
         tree["enc_norm"] = cm.init_norm(root, d, cfg.norm)
     tree["final_norm"] = cm.init_norm(root, d, cfg.norm)
     if not cfg.tie_embeddings:
-        tree["head"] = root.normal((d, cfg.vocab))
+        tree["head"] = root.normal((d, cfg.vocab), ("embed", "vocab"))
     if cfg.mtp:
-        tree["mtp"] = {"proj": root.normal((2 * d, d)),
+        tree["mtp"] = {"proj": root.normal((2 * d, d), (None, "embed")),
                        "block": init_block(root, cfg, "a", d_ff=cfg.d_ff),
                        "norm": cm.init_norm(root, d, cfg.norm)}
     return tree
+
+
+def abstract_params(cfg: ModelCfg, dtype=torch.float32):
+    """``(params, logical axes)``: ``init_params``'s tree on the ``meta``
+    device (shapes and dtypes, no storage) and beside it the reference's
+    tree of logical axis tuples, one name or None per dim of each leaf."""
+    with cm.record_axes() as rec:
+        tree = init_params(cfg, device="meta", dtype=dtype)
+    return tree, tree_map(lambda t: rec[id(t)][1], tree)
+
+
+def param_axes(cfg: ModelCfg):
+    """The logical axes tree beside ``init_params(cfg)``'s tree."""
+    return abstract_params(cfg)[1]
 
 
 def param_numel(params) -> int:
@@ -221,23 +242,61 @@ def _embed(params, cfg, tokens):
     # F.embedding, not indexing: its backward sums a token's rows in a
     # fixed order on the CPU too (indexing's accumulates across threads).
     w = params["embed"]
-    x = F.embedding(torch.as_tensor(tokens).to(w.device, torch.int64),
-                    w.to(cm.cdtype(cfg)))
+    tokens = torch.as_tensor(tokens).to(w.device, torch.int64)
+    if isinstance(w, DTensor) and context.current_rules() is not None:
+        x = _sharded_embed(w.to(cm.cdtype(cfg)), tokens)
+    else:
+        x = F.embedding(tokens, w.to(cm.cdtype(cfg)))
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     return x
 
 
+def _sharded_embed(w, tokens):
+    """The vocab-parallel lookup of ``tokens`` (B, S) in a DTensor table
+    (V, D): each device looks up the rows of its vocab shard (zeros for
+    tokens outside it) in a ``local_map``, and the rows are summed over
+    the vocab's mesh dims onto the batch placement."""
+    rules = context.current_rules()
+    mesh = w.device_mesh
+    tok_pl = rules.sharding(tokens.shape, ("batch", None))
+    w_pl = rules.sharding(w.shape, ("vocab", None))
+    vdims = [j for j, pl in enumerate(w_pl) if pl.is_shard()]
+    vl = w.shape[0] // math.prod(mesh.size(j) for j in vdims)
+    rows_pl = tuple(Partial() if wp.is_shard() else tp
+                    for tp, wp in zip(tok_pl, w_pl))
+
+    def lookup(tab, tok):
+        if not vdims:
+            return F.embedding(tok, tab)
+        v0 = vl * mesh.get_local_rank(vdims[0])
+        hit = (tok >= v0) & (tok < v0 + vl)
+        rows = F.embedding(torch.where(hit, tok - v0, 0), tab)
+        return torch.where(hit[..., None], rows, 0.0)
+
+    x = local_map(
+        lookup, out_placements=(rows_pl,),
+        in_placements=(w_pl, tok_pl),
+        in_grad_placements=(tuple(
+            wp if wp.is_shard() else Partial() if tp.is_shard() else wp
+            for tp, wp in zip(tok_pl, w_pl)), tok_pl),
+        device_mesh=mesh, redistribute_inputs=True)(w, tokens)
+    return context.constrain(x, ("batch", None, None))
+
+
 def _head(params, cfg, x):
     x = cm.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    x = context.constrain(x, ("batch", None, None))
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    logits = cm.einsum("bsd,dv->bsv", x, w.to(x.dtype),
+                       ("batch", None, None), (None, "vocab"))
     if cfg.logit_softcap:
         logits = cm.softcap(logits.to(torch.float32),
                             cfg.logit_softcap).to(x.dtype)
-    # Logits stay in the compute dtype, as in the reference.
-    return logits
+    # Logits stay in the compute dtype, as in the reference; sharded, they
+    # keep the batch on the data axes and the vocab on the model axis.
+    return context.constrain(logits, ("batch", None, "vocab"))
 
 
 def _stack(x, stacks, cfg, *, positions, causal=True, enc_out=None,
@@ -356,7 +415,15 @@ def _xent(logits, labels):
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     idx = torch.as_tensor(labels, device=lf.device).to(torch.int64)
-    gold = torch.gather(lf, -1, idx[..., None])[..., 0]
+    if isinstance(lf, DTensor):
+        # Vocab-sharded logits: the reference's one-hot masked sum, which
+        # keeps every dim aligned with the logits' placement (a gather
+        # along the sharded vocab has no sharding strategy to use).
+        vocab = torch.arange(lf.shape[-1], device=idx.device)
+        gold = torch.sum(torch.where(vocab == idx[..., None], lf, 0.0),
+                         dim=-1)
+    else:
+        gold = torch.gather(lf, -1, idx[..., None])[..., 0]
     return torch.mean(lse - gold)
 
 
@@ -441,6 +508,33 @@ def init_cache(cfg: ModelCfg, batch: int, max_len: int,
         cache["cross"] = stk((cfg.n_cycles,), attn.init_decode_cache(
             dtype, cfg, batch, 0, device))
     return cache
+
+
+def cache_axes(cfg: ModelCfg):
+    """Logical axis names mirroring ``init_cache``'s structure (for the
+    sharding rules).  KV caches prefer kv-head sharding; when the head
+    count does not divide the mesh axis the rules fall back to splitting
+    the sequence (flash-decoding style)."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    mla_ax = {"c": ("layers", "batch", "kv_seq", None),
+              "kr": ("layers", "batch", "kv_seq", None)}
+    gqa_ax = {"k": kv, "v": kv}
+
+    if cfg.family == "hybrid":
+        ssm_state = (None, None, "batch", "heads", None, None)
+        ssm_conv = (None, None, "batch", None, "d_ff")
+        return {"ssm": (ssm_state, ssm_conv),
+                "shared": {"k": kv, "v": kv}}
+    if cfg.family == "ssm":
+        return {"ssm": ((None, "batch", "heads", None, None),
+                        (None, "batch", None, "d_ff"))}
+    per = mla_ax if cfg.mla else gqa_ax
+    out = {"layers": {f"{ci}_{k}": per for ci, k in enumerate(cfg.cycle)}}
+    if cfg.moe and cfg.moe.first_dense:
+        out["prefix"] = per
+    if cfg.enc_layers:
+        out["cross"] = {"k": kv, "v": kv}
+    return out
 
 
 def _decode_block(p, x, cfg, kind, cache, pos, enc_feats=None):
@@ -564,6 +658,8 @@ def prefill(params, cfg: ModelCfg, batch, max_len: int,
     enc_out = (_encode(params, cfg, batch["frames"]) if cfg.enc_layers
                else None)
     cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
+    if isinstance(params["embed"], DTensor):
+        cache = context.distribute(cache, cache_axes(cfg))
     if cfg.family in ("ssm", "hybrid"):
         return _prefill_ssm(params, cfg, tokens, cache, cache_dtype)
     x = _embed(params, cfg, tokens)
@@ -578,8 +674,9 @@ def prefill(params, cfg: ModelCfg, batch, max_len: int,
         (stack,) = params["layers"].values()
         dt = cm.cdtype(cfg)
         cache["cross"] = {
-            kk: torch.einsum("btd,ldhk->lbthk", enc_out,
-                             stack["xattn"][w].to(dt)).to(cache_dtype)
+            kk: cm.einsum("btd,ldhk->lbthk", enc_out,
+                          stack["xattn"][w].to(dt), ("batch", "seq", None),
+                          ("layers", None, "kv_heads", None)).to(cache_dtype)
             for kk, w in (("k", "wk"), ("v", "wv"))}
     logits = _head(params, cfg, x)
     return logits[:, -1], cache

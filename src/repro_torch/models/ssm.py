@@ -37,14 +37,15 @@ def init_ssm(init: cm.Init, cfg):
     dt_bias = dt0 + np.log(-np.expm1(-dt0))
     a0 = rng.uniform(1.0, 16.0, nheads)
     return {
-        "in_proj": init.normal((d, proj_out)),
-        "conv_w": init.normal((s.conv_dim, conv_ch), scale=0.1),
-        "conv_b": init.zeros((conv_ch,)),
-        "A_log": init.const(np.log(a0)),
-        "D": init.ones((nheads,)),
-        "dt_bias": init.const(dt_bias),
-        "norm_w": init.zeros((d_in,)),
-        "out_proj": init.normal((d_in, d)),
+        "in_proj": init.normal((d, proj_out), ("embed", "d_ff")),
+        "conv_w": init.normal((s.conv_dim, conv_ch), (None, "d_ff"),
+                              scale=0.1),
+        "conv_b": init.zeros((conv_ch,), ("d_ff",)),
+        "A_log": init.const(np.log(a0), (None,)),
+        "D": init.ones((nheads,), (None,)),
+        "dt_bias": init.const(dt_bias, (None,)),
+        "norm_w": init.zeros((d_in,), (None,)),
+        "out_proj": init.normal((d_in, d), ("d_ff", "embed")),
     }
 
 

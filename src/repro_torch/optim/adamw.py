@@ -46,7 +46,7 @@ class AdamW:
         """``{"m", "v"}`` zeros shaped like ``params`` in ``state_dtype``,
         on each parameter's device, and ``"step"`` an int32 0."""
         dt = getattr(torch, self.state_dtype)
-        zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=dt)   # placed like p
         dev = next(lm.tree_leaves(params)).device
         return {"m": lm.tree_map(zeros, params),
                 "v": lm.tree_map(zeros, params),

@@ -10,8 +10,10 @@ round-time model with :func:`sharded_fhp_traffic`
 (``CAServeEngine._modeled_round_s``); the autotuner
 (``kernels.fhp_step.ops.autotune_launch``) prices the exchange with
 :func:`measured_exchange_latency`, which times the sharded path's ring
-between cards where there are two or more.  The reference's XLA-HLO
-parsers have no counterpart here.
+between cards where there are two or more.  The counterparts of the
+reference's XLA-HLO parsers (``collective_bytes``, ``hbm_bytes_estimate``,
+``analyze_compiled``) read a traced step instead of HLO text:
+:mod:`repro_torch.roofline.trace`.
 
 ``sharded_fhp_traffic`` prices one shard of ``(hl, wdl)`` words advanced
 ``depth`` local steps per halo-exchange round, executed as ceil(d/T)

@@ -1,13 +1,22 @@
 """Training loop: the train step (gradients accumulated over microbatches,
 then a clipped AdamW update) and a ``Trainer`` with resumable
-checkpoints, as the reference's (``repro/train/loop.py``) on one device.
+checkpoints, as the reference's (``repro/train/loop.py``).
+
+Sharding: ``Trainer(mesh=, rules=)`` places the parameters and the
+optimizer state on a ``DeviceMesh`` as DTensors placed by the sharding
+rules from their logical axes (``parallel.context.distribute``), each
+batch's rows over the batch axes, and runs the step under ``use_rules``
+and ``implicit_replication()``
+(one process per rank: ``torchrun``).  Without a mesh it is the
+one-device trainer.
 
 Fault tolerance: an async checkpoint of ``{"params", "opt": {"m", "v",
 "step"}}`` every ``ckpt_every`` steps, under the reference's leaf keys and
-on-disk format, so either package resumes the other's; on (re)start the
-``Trainer`` restores ``latest_step`` and replays the counter-based data
-stream from there.  Sharding over a mesh (``mesh``, ``rules``) is not
-ported yet (ROADMAP §1, item 11f).
+on-disk format, so either package resumes the other's (on a mesh, rank 0
+writes the full tensors); on (re)start the ``Trainer`` restores
+``latest_step`` onto the current mesh's placements -- which may differ
+from the mesh that wrote it (elastic re-scale) -- and replays the
+counter-based data stream from there.
 """
 from __future__ import annotations
 
@@ -16,14 +25,21 @@ import logging
 import time
 from typing import Callable, Dict, Optional
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import checkpoint as ckpt_lib
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import common as cm
 from repro_torch.models import init_params, lm, loss_fn
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.parallel import Rules
+from repro_torch.parallel.context import distribute, use_rules
 
 log = logging.getLogger(__name__)
 
@@ -63,9 +79,10 @@ def make_train_step(cfg, opt: AdamW, microbatches: int = 1) -> Callable:
             mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
             mb_loss, metrics = loss_fn(tree, cfg, mb)
             mb_loss.backward()
-            g = [t.grad.to(torch.float32) if t.grad is not None
-                 else torch.zeros(t.shape, dtype=torch.float32,
-                                  device=t.device) for t in live]
+            g = [_placed_like(t.grad.to(torch.float32), t)
+                 if t.grad is not None
+                 else torch.zeros_like(t, dtype=torch.float32)
+                 for t in live]
             for t in live:
                 t.grad = None
             grads = g if grads is None else [a + x for a, x in zip(grads, g)]
@@ -82,20 +99,33 @@ def make_train_step(cfg, opt: AdamW, microbatches: int = 1) -> Callable:
     return step_fn
 
 
-class Trainer:
-    """The training loop on one device (``device=None``: the card): seeded
-    init, data, step, checkpoints."""
+def _placed_like(g, p):
+    """A DTensor gradient on its parameter's placement (the gradient
+    reduction an FSDP or tensor-parallel step makes), so the update keeps
+    every parameter where the rules put it; a tensor as it is."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
-    def __init__(self, model_cfg, tcfg: TrainConfig, mesh=None, rules=None,
-                 *, device=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=, rules=): sharded training is not ported to "
-                "repro_torch yet (ROADMAP §1 item 11f); the port trains on "
-                "one device")
+
+class Trainer:
+    """The training loop: seeded init, data, step, checkpoints.  On one
+    device (``device=None``: the card), or with ``mesh`` (a
+    ``DeviceMesh``; this process is one of its ranks) sharded by ``rules``
+    (default ``Rules(mesh)``) on the mesh's device type."""
+
+    def __init__(self, model_cfg, tcfg: TrainConfig, mesh=None,
+                 rules: Optional[Rules] = None, *, device=None):
+        if rules is not None and mesh is None:
+            raise ValueError("Trainer(rules=) needs the mesh it maps to")
         self.cfg = model_cfg
         self.tcfg = tcfg
-        self.device = cm.device_or_card(device)
+        self.mesh = mesh
+        self.rules = (rules or Rules(mesh, seq_parallel=model_cfg.seq_parallel)
+                      if mesh is not None else None)
+        self.device = cm.device_or_card(
+            device if device is not None or mesh is None
+            else mesh.device_type)
         self.opt = AdamW(
             lr=cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.steps),
             weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm,
@@ -109,6 +139,9 @@ class Trainer:
                         if tcfg.ckpt_dir else None)
         self.params = init_params(model_cfg, seed=tcfg.seed,
                                   device=self.device)
+        if mesh is not None:
+            self.param_axes = lm.param_axes(model_cfg)
+            self.params = self._distribute(self.params)
         self.opt_state = self.opt.init(self.params)
         self.start_step = 0
         self._maybe_resume()
@@ -125,14 +158,45 @@ class Trainer:
         restored = ckpt_lib.restore(
             self.tcfg.ckpt_dir, last,
             {"params": self.params, "opt": self.opt_state})
-        self.params = restored["params"]
+        self.params = self._distribute(restored["params"])
         self.opt_state = restored["opt"]
+        if self.mesh is not None:
+            self.opt_state.update(m=self._distribute(restored["opt"]["m"]),
+                                  v=self._distribute(restored["opt"]["v"]))
         self.start_step = last
         log.info("resumed from step %d", last)
 
+    # -- the mesh -------------------------------------------------------------
+    def _distribute(self, tree):
+        """A tree shaped like the parameters, placed like them on the mesh
+        (every rank holds the whole tree and keeps its own shards); as it
+        is without a mesh."""
+        if self.mesh is None:
+            return tree
+        return distribute(tree, self.param_axes, self.rules)
+
+    def _scope(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_rules(self.rules))
+        stack.enter_context(implicit_replication())
+        return stack
+
+    def _host_state(self):
+        """The checkpointed state with every DTensor gathered whole (a
+        collective: every rank calls it)."""
+        full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+        return {"params": lm.tree_map(full, self.params),
+                "opt": lm.tree_map(full, self.opt_state)}
+
     def _device_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.data.batch_at(step).items()}
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in self.data.batch_at(step).items()}
+        if self.mesh is None:
+            return batch
+        return distribute(batch, {k: ("batch",) + (None,) * (v.dim() - 1)
+                                  for k, v in batch.items()}, self.rules)
 
     def run(self, steps: Optional[int] = None) -> Dict[str, list]:
         steps = steps or self.tcfg.steps
@@ -140,19 +204,26 @@ class Trainer:
         for s in range(self.start_step, steps):
             t0 = time.perf_counter()
             batch = self._device_batch(s)
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
-            loss = float(metrics["loss"])
+            with self._scope():
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch)
+            loss = metrics["loss"]
+            loss = float(loss.full_tensor() if isinstance(loss, DTensor)
+                         else loss)
             if not np.isfinite(loss):
                 raise FloatingPointError(f"loss diverged at step {s}")
             history["loss"].append(loss)
             history["step_time"].append(time.perf_counter() - t0)
             if self.manager and (s + 1) % self.tcfg.ckpt_every == 0:
-                self.manager.save_async(
-                    s + 1, {"params": self.params, "opt": self.opt_state})
+                state = (self._host_state() if self.mesh is not None else
+                         {"params": self.params, "opt": self.opt_state})
+                if self.mesh is None or dist.get_rank() == 0:
+                    self.manager.save_async(s + 1, state)
             if (s + 1) % self.tcfg.log_every == 0:
                 log.info("step %d loss %.4f (%.0f ms)", s + 1, loss,
                          1e3 * history["step_time"][-1])
         if self.manager:
             self.manager.wait()
+            if self.mesh is not None:
+                dist.barrier()      # rank 0's checkpoints are on disk
         return history

@@ -332,3 +332,64 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     assert abs(gl - hl) <= 1e-4 * max(abs(hl), 1.0)
     for a, b in zip(gg, hg):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_sharded_trainer_on_a_one_card_mesh_matches_unsharded(cuda):
+    # chip_smoke.py phase 14b at the smoke config: a (1, 1) DeviceMesh
+    # over a world-size-1 NCCL group, rules on, against the one-device
+    # Trainer on the card.
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.parallel import Rules
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = get_smoke("repro-100m")
+    tc = TrainConfig(seq_len=64, global_batch=4, steps=4, lr=1e-3, warmup=2,
+                     log_every=100)
+    want = Trainer(cfg, tc, device=cuda).run()["loss"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        tr = Trainer(cfg, tc, mesh=mesh, rules=Rules(mesh))
+        assert isinstance(tr.params["embed"], DTensor)
+        got = tr.run()["loss"]
+    finally:
+        dist.destroy_process_group()
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-5
+
+
+def test_fhp_recorder_on_the_card_matches_the_steppers_counts(cuda):
+    # chip_smoke.py phase 14d at a small lattice: the recorder on the
+    # 2 x 2 sharded path on the card.
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline import trace as rt
+    spec = rulespec.get_rule("fhp2")
+    x = torch.from_numpy(spec.init_bytes(64, 1024, 0.3, 5))
+    from repro_torch.core import bitplane
+    planes = bitplane.pack(x.to(cuda), n_planes=spec.n_planes)
+    mesh = distributed.make_mesh((2, 2), ("data", "model"), cuda)
+    run = distributed.make_run(mesh, 8, depth=4, p_force=0.03,
+                               steps_per_launch=4)
+    want = run(planes, 0)
+    distributed.EXCHANGE.clear()
+    ops.LAUNCHES.clear()
+    with rt.TraceRecorder() as rec:
+        got = run(planes, 0)
+    launched = ops.launches_total()
+    kernels = [r for r in rec.ops if r.name.startswith("fhp_step")]
+    cb = rt.collective_bytes(rec)["collective-permute"]
+    assert launched == len(kernels) == 4 * 2
+    assert cb["operand_bytes"] == distributed.EXCHANGE["bytes"]
+    hl, wdl = planes.shape[-2] // 2, planes.shape[-1] // 2
+    assert cb["operand_bytes"] / (4 * 2) == analysis.sharded_fhp_traffic(
+        hl, wdl, depth=4, T=4, block_rows=4)["ici_bytes_per_exchange"]
+    assert torch.equal(got, want)

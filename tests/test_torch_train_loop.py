@@ -109,8 +109,8 @@ def test_resume_from_the_other_package(tmp_path, first):
 def test_trainer_refuses_a_mesh_and_stops_on_a_nonfinite_loss():
     cfg = get_smoke("repro-100m")
     tc = TrainConfig(seq_len=16, global_batch=2, steps=2, log_every=100)
-    with pytest.raises(NotImplementedError, match="11f"):
-        Trainer(cfg, tc, mesh=object(), device=CPU)
+    with pytest.raises(ValueError, match="needs the mesh"):
+        Trainer(cfg, tc, rules=object(), device=CPU)
     tr = Trainer(cfg, tc, device=CPU)
     tr.params["final_norm"]["w"].fill_(float("nan"))
     with pytest.raises(FloatingPointError, match="step 0"):
