@@ -988,7 +988,7 @@ def _serve_path(dev, card, out, main_s):
         t = time.perf_counter()
         eng.tick()      # the first round admits (builds) every lattice
         g = eng.groups["bml|0.0"]
-        got = (g.state, torch.from_numpy(g.last_moments).to(dev))
+        got = (g.state, g.last_moments)
         _held("serve: bml group's first round", got,
               (first_bml[0], first_bml[1][:, 0]))
         eng.drain()

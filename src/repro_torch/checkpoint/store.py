@@ -68,6 +68,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import carry
 from repro_torch.core.distributed import LatticeSharding, ShardedPlanes
 
@@ -198,7 +199,7 @@ def step_dir(directory: str, step: int) -> str:
 
 
 def save(directory: str, step: int, tree: Any, meta: Optional[dict] = None,
-         overwrite: bool = False) -> str:
+         overwrite: bool = False, tel=None) -> str:
     """Synchronous save.  Returns the checkpoint path.
 
     ``meta`` is an optional JSON-serializable dict stored in the
@@ -214,14 +215,19 @@ def save(directory: str, step: int, tree: Any, meta: Optional[dict] = None,
     rename (old copy moved aside first, removed last), so at no instant
     between syscalls is the previous good copy destroyed without a
     complete replacement staged on disk.
+
+    ``tel`` is the caller's ``repro_torch.telemetry.Telemetry`` (default:
+    the module default): the save is a ``checkpoint.save`` span, each
+    leaf's checksum a ``checkpoint.crc`` and each file written a
+    ``checkpoint.write``.
     """
-    from repro_torch import telemetry
-    with telemetry.span("checkpoint.save", step=step):
-        return _save(directory, step, tree, meta, overwrite)
+    tel = tel or telemetry.default()
+    with tel.span("checkpoint.save", step=step):
+        return _save(directory, step, tree, meta, overwrite, tel)
 
 
 def _save(directory: str, step: int, tree: Any, meta: Optional[dict],
-          overwrite: bool) -> str:
+          overwrite: bool, tel) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp_{step}_{os.getpid()}")
     final = step_dir(directory, step)
@@ -233,12 +239,16 @@ def _save(directory: str, step: int, tree: Any, meta: Optional[dict],
     for key, leaf in flat.items():
         arr = _host(leaf)
         fn = _SAFE.sub("_", key) + ".npy"
-        _write_npy(os.path.join(tmp, fn), arr)
+        with tel.span("checkpoint.write"):
+            _write_npy(os.path.join(tmp, fn), arr)
+        with tel.span("checkpoint.crc"):
+            crc = _crc(arr)
         manifest["leaves"][key] = {
             "file": fn, "shape": list(arr.shape),
             "dtype": "bfloat16" if _is_bf16(arr) else str(arr.dtype),
-            "crc32": _crc(arr)}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            "crc32": crc}
+    with tel.span("checkpoint.write"), \
+            open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         if not overwrite:
@@ -376,7 +386,7 @@ def _place(arr: np.ndarray, tgt, sh):
 
 def restore(directory: str, step: int, target_tree: Any,
             shardings: Any = None, check: bool = True,
-            strict: bool = True) -> Any:
+            strict: bool = True, tel=None) -> Any:
     """Load a checkpoint into the structure of ``target_tree``.
 
     ``shardings`` (optional, same structure; ``None`` leaves mean "like
@@ -396,9 +406,11 @@ def restore(directory: str, step: int, target_tree: Any,
     and checksum-clean, but the checkpoint may carry extra leaves (the
     serve layer's parked-job lattices, loaded individually via
     :func:`load_leaf`).
+
+    ``tel``: the caller's telemetry instance for the
+    ``checkpoint.restore`` span (default: the module default).
     """
-    from repro_torch import telemetry
-    with telemetry.span("checkpoint.restore", step=step):
+    with (tel or telemetry.default()).span("checkpoint.restore", step=step):
         return _restore(directory, step, target_tree, shardings, check,
                         strict)
 

@@ -42,6 +42,7 @@ from typing import Callable, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import ops
 from repro_torch.roofline import trace as rtrace
@@ -591,20 +592,28 @@ def make_ensemble_run(mesh, steps: int, *, variant: str = "fhp2",
     ``moments_every`` = k > 0 makes ``run`` return ``(planes, moments)``
     with ``moments`` the per-lane ``(B, steps // k, n_moments)`` int32
     ``MomentSpec`` time series (``rulespec.moment_spec(rule)``); on a mesh
-    k must divide ``depth``."""
+    k must divide ``depth``.
+
+    Each call of ``run`` is one ``ensemble.run`` telemetry span."""
     k = int(moments_every)
     if mesh is None:
         def run(planes, t0: int = 0):
-            return ops.run_cuda(planes, steps, p_force=p_force, t0=t0,
-                                steps_per_launch=steps_per_launch or 1,
-                                block_rows=block_rows,
-                                block_words=block_words, variant=variant,
-                                moments_every=k)
+            with telemetry.span("ensemble.run"):
+                return ops.run_cuda(planes, steps, p_force=p_force, t0=t0,
+                                    steps_per_launch=steps_per_launch or 1,
+                                    block_rows=block_rows,
+                                    block_words=block_words,
+                                    variant=variant, moments_every=k)
 
         return run, None
-    run = make_run(mesh, steps, y_axes=y_axes, x_axis=x_axis,
-                   p_force=p_force, depth=depth, batched=True,
-                   steps_per_launch=steps_per_launch, block_rows=block_rows,
-                   block_words=block_words, overlap=overlap,
-                   variant=variant, moments_every=k)
+    step = make_run(mesh, steps, y_axes=y_axes, x_axis=x_axis,
+                    p_force=p_force, depth=depth, batched=True,
+                    steps_per_launch=steps_per_launch, block_rows=block_rows,
+                    block_words=block_words, overlap=overlap,
+                    variant=variant, moments_every=k)
+
+    def run(planes, t0: int = 0):
+        with telemetry.span("ensemble.run"):
+            return step(planes, t0)
+
     return run, lattice_spec(mesh, y_axes, x_axis)

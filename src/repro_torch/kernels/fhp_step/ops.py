@@ -28,6 +28,11 @@ and moments), so the reference's ``block_words | Wd`` rule and its row and
 word padding in ``run_extended`` are dropped; its other argument checks
 are kept.  The kernel always writes a fresh output, so ``donate`` (the
 reference's in-place carry, a memory saving) is refused.
+
+Telemetry spans (``repro_torch.telemetry``): ``fhp_step.launch``, one a
+library call (the output and moments allocation and the call), and
+``fhp_step.moments``, ``run_cuda``'s concatenation of a call's moment
+records.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import prng, rulespec
 from repro_torch.kernels.fhp_step import build, codegen
 from repro_torch.kernels.fhp_step.ref import fhp_step_ref
@@ -47,7 +53,7 @@ from repro_torch.roofline import trace as rtrace
 # Kernel launches since the count was last cleared, by mode ("periodic",
 # "static_solid", "extended", "extended_static_solid", "precomputed_rng");
 # "moments" counts the launches that also record moments.  Read by
-# chip_smoke; ``launches_total`` sums the modes.
+# chip_smoke and the benchmark; ``launches_total`` sums the modes.
 LAUNCHES: collections.Counter = collections.Counter()
 
 SMEM_BYTES_PER_BLOCK = 232_448    # H100: 227 KB of shared memory per block
@@ -486,25 +492,27 @@ def _launch(planes, solid, chi, acc, rule_id, mode_id, t, y0, xw0, hg, wdg,
     if -(-h // bh) > _GRID_YZ_LIMIT or b > _GRID_YZ_LIMIT:
         raise ValueError(f"grid ({-(-h // bh)} row tiles, {b} lanes) "
                          f"exceeds {_GRID_YZ_LIMIT}")
-    x = planes.contiguous()
-    out = torch.empty_like(x)
-    operands = []
-    for name, a in (("solid", solid), ("chi", chi), ("acc", acc)):
-        if a is not None and (a.device != x.device or a.dtype != torch.int32):
-            raise ValueError(f"{name} must be int32 on {x.device}")
-        operands.append(None if a is None else a.contiguous())
-    mom = (torch.zeros((b, len(rs), n_moments), dtype=torch.int32,
-                       device=x.device) if rs else None)
-    mask = sum(1 << s for s in rs)
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        err = lib.fhp_step_launch(
-            x.data_ptr(), out.data_ptr(),
-            *(None if a is None else a.data_ptr() for a in operands),
-            None if mom is None else mom.data_ptr(),
-            rule_id, mode_id, b, h, wd, bh, bw, T, int(t) & 0xFFFFFFFF,
-            prng.i32(y0), prng.i32(xw0), hg, wdg, *bounds, pq, mask,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    with telemetry.span("fhp_step.launch"):
+        x = planes.contiguous()
+        out = torch.empty_like(x)
+        operands = []
+        for name, a in (("solid", solid), ("chi", chi), ("acc", acc)):
+            if a is not None and (a.device != x.device
+                                  or a.dtype != torch.int32):
+                raise ValueError(f"{name} must be int32 on {x.device}")
+            operands.append(None if a is None else a.contiguous())
+        mom = (torch.zeros((b, len(rs), n_moments), dtype=torch.int32,
+                           device=x.device) if rs else None)
+        mask = sum(1 << s for s in rs)
+        lib = build.library()
+        with torch.cuda.device(x.device):
+            err = lib.fhp_step_launch(
+                x.data_ptr(), out.data_ptr(),
+                *(None if a is None else a.data_ptr() for a in operands),
+                None if mom is None else mom.data_ptr(),
+                rule_id, mode_id, b, h, wd, bh, bw, T, int(t) & 0xFFFFFFFF,
+                prng.i32(y0), prng.i32(xw0), hg, wdg, *bounds, pq, mask,
+                torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fhp_step kernel launch failed: CUDA error {err}")
     return (out, mom) if rs else out
@@ -569,7 +577,8 @@ def run_cuda(planes: torch.Tensor, steps: int, *, p_force: float = 0.0,
     if not k:
         return out
     if moms:
-        return out, torch.cat(moms, dim=-2)
+        with telemetry.span("fhp_step.moments"):
+            return out, torch.cat(moms, dim=-2)
     spec = rulespec.get_rule(kw.get("variant", "fhp2"))
     ms = rulespec.moment_spec(spec, stack_planes=planes.shape[-3])
     return out, torch.zeros(planes.shape[:-3] + (0, ms.n_moments),

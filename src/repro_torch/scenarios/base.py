@@ -15,6 +15,7 @@ give the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -111,19 +112,33 @@ class Scenario:
         """Packed (n_planes, H, W//32) int32 bit-plane stack on ``device``,
         built on the host in row chunks of ``chunk_rows`` rows (0 = about
         64 MiB of draws per chunk)."""
+        return carry.planes_from_reference(self.initial_words(chunk_rows),
+                                           device)
+
+    def initial_words(self, chunk_rows: int = 0, telemetry=None
+                      ) -> np.ndarray:
+        """``initial_planes``' packed (n_planes, H, W//32) uint32 words on
+        the host.  ``telemetry`` (a ``repro_torch.telemetry.Telemetry``,
+        the serve engine's) times the seeded draws as ``serve.admit.draw``
+        and the solid plane as ``serve.admit.solid``."""
+        span = (telemetry.span if telemetry is not None
+                else contextlib.nullcontext)
         spec = self.rule()
         rows = chunk_rows or _chunk_rows(self.width)
-        words = spec.init_planes(self.height, self.width, self.density,
-                                 self.seed, rows)
-        solid = self.solid_plane(rows)
-        sp = spec.solid_plane
-        if sp is None:
-            if solid.any():
-                raise ValueError(f"rule {self.variant!r} has no solid plane "
-                                 f"but scenario {self.name!r} has geometry")
-            return carry.planes_from_reference(words, device)
-        for i in range(spec.n_planes):
-            if i != sp:
-                words[i] &= ~solid
-        words[sp] = solid
-        return carry.planes_from_reference(words, device)
+        with span("serve.admit.draw"):
+            words = spec.init_planes(self.height, self.width, self.density,
+                                     self.seed, rows)
+        with span("serve.admit.solid"):
+            solid = self.solid_plane(rows)
+            sp = spec.solid_plane
+            if sp is None:
+                if solid.any():
+                    raise ValueError(
+                        f"rule {self.variant!r} has no solid plane but "
+                        f"scenario {self.name!r} has geometry")
+                return words
+            for i in range(spec.n_planes):
+                if i != sp:
+                    words[i] &= ~solid
+            words[sp] = solid
+        return words

@@ -80,6 +80,16 @@ Overload-robustness layer (what makes it *operable*):
   throughput, frame-gap percentiles, deadline misses, sheds/rejects,
   and the Jain fairness index over weighted per-tenant work.
 
+Telemetry (``telemetry=``, else the module default): a round is a
+``serve.round`` span whose children are ``serve.admit`` (with
+``.draw``, ``.solid``, ``.copy`` and ``.invariants`` a job),
+``serve.kernel`` (the host's issue of a group's launches: it does not
+wait for the card), ``serve.audit`` (``serve.audit.wait``, the fused
+moments' copy to the host: the round's one wait for the card),
+``serve.frames``, ``serve.retire``, ``serve.rollback`` and
+``serve.checkpoint`` (``serve.checkpoint.copy``, then the store's
+``checkpoint.save`` with its ``checkpoint.crc`` and ``checkpoint.write``).
+
 A :class:`repro_torch.serve.faults.FaultInjector` can be attached to drive
 the deterministic fault schedule (bit flips, garbaged shards, torn
 checkpoints, kills, stragglers, burst storms, poison pills) that the
@@ -214,13 +224,6 @@ def _tiles(state) -> List[torch.Tensor]:
     return [state]
 
 
-def _synchronize(state) -> None:
-    """Wait for the card(s) holding ``state``."""
-    for dev in {t.device for t in _tiles(state)}:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-
 def _state_invariants(spec, state):
     """``(invariants, structural-ok)`` of every lane as host arrays,
     recomputed from a lane stack (popcounts add up over shards)."""
@@ -251,10 +254,11 @@ class _LaneGroup:
             y_axes=engine.y_axes, x_axis=engine.x_axis,
             moments_every=engine.round_steps)
         self.mspec = rulespec.moment_spec(self.spec)
-        # End-of-round fused moments, (slots, n_moments) int32 on host.
+        # End-of-round fused moments, (slots, n_moments) int32 on the
+        # state's device; the audit copies them to the host.
         # ``moments_dirty`` flags moments that predate an injected state
         # corruption -- the audit must recompute from the state then.
-        self.last_moments: Optional[np.ndarray] = None
+        self.last_moments: Optional[torch.Tensor] = None
         self.moments_dirty = False
         shape = (engine.slots, self.spec.n_planes, engine.height,
                  engine.width // 32)
@@ -593,27 +597,32 @@ class CAServeEngine:
         parked jobs resume from their bit-exact parked lattice in a new
         ``(t0, steps)`` segment."""
         t = self.round * self.round_steps
-        if job.status == PARKED and job.parked_state is not None:
-            planes = carry.planes_from_reference(job.parked_state,
-                                                 self.device)
+        fresh = not (job.status == PARKED and job.parked_state is not None)
+        if fresh:
+            words = sc.initial_words(telemetry=self.tel)
+            job.admitted_t = t
+            job.steps_done = 0
+            job.segments = []
+        else:
+            words = job.parked_state
             job.parked_state = None
             self.stats["resumed"] += 1
             self.tel.event("serve.resume", rid=job.rid, round=self.round,
                            steps_done=job.steps_done)
-        else:
-            planes = sc.initial_planes(device=self.device)
-            job.admitted_t = t
-            job.steps_done = 0
-            job.segments = []
+        with self.tel.span("serve.admit.copy"):
+            planes = carry.planes_from_reference(words, self.device)
+            _write_lane(g.state, lane, planes)
+        if fresh:
             spec = g.spec
-            # Momentum is only conserved on a free torus without forcing.
-            job.with_momentum = bool(
-                spec.conserves_momentum and sc.p_force == 0.0
-                and not sc.solid_mask().any())
-            inv = rulespec.invariants(spec, planes,
-                                      with_momentum=job.with_momentum)
-            job.expected = {k: v.cpu().tolist() for k, v in inv.items()}
-        _write_lane(g.state, lane, planes)
+            with self.tel.span("serve.admit.invariants"):
+                # Momentum is only conserved on a free torus without
+                # forcing.
+                job.with_momentum = bool(
+                    spec.conserves_momentum and sc.p_force == 0.0
+                    and not sc.solid_mask().any())
+                inv = rulespec.invariants(spec, planes,
+                                          with_momentum=job.with_momentum)
+                job.expected = {k: v.cpu().tolist() for k, v in inv.items()}
         job.status, job.lane = RUNNING, lane
         job.segments.append([t, 0])
         g.slots[lane] = job
@@ -646,13 +655,13 @@ class CAServeEngine:
         for g in self.groups.values():
             if not g.live_jobs():
                 continue
+            # The host's issue of the group's launches; the device's time
+            # is the device trace's.
             with tel.span("serve.kernel", group=g.key(),
                           steps=self.round_steps):
                 state, mom = g.run(g.state, t)
-                if tel.enabled:     # so the span times the device
-                    _synchronize(state)
             g.state = state
-            g.last_moments = carry.moments_to_reference(mom[..., -1, :])
+            g.last_moments = mom[..., -1, :]
             g.moments_dirty = False
             if self.injector is not None and self.injector.corrupt(
                     g.state, g.variant, rnd,
@@ -819,7 +828,9 @@ class CAServeEngine:
         if cached is not None:
             return cached
         if g.last_moments is not None and not g.moments_dirty:
-            mom = g.last_moments
+            # The round's one wait for the card: its moments to the host.
+            with self.tel.span("serve.audit.wait"):
+                mom = carry.moments_to_reference(g.last_moments)
             inv = {n: mom[..., r] for r, n in enumerate(g.mspec.names)}
             ok_struct = np.ones(mom.shape[:-1], bool)
             for name in [n for n in inv if n.startswith("excl")]:
@@ -1023,15 +1034,16 @@ class CAServeEngine:
                           if not isinstance(v, list)}}
 
     def _checkpoint(self):
-        tree = {"groups": {k: _host_words(g.state)
-                           for k, g in self.groups.items()}}
+        with self.tel.span("serve.checkpoint.copy"):
+            tree = {"groups": {k: _host_words(g.state)
+                               for k, g in self.groups.items()}}
         parked = self._parked_jobs()
         if parked:
             # Parked lattices are checkpoint *leaves* (crc32-verified),
             # so a preempted job survives process death too.
             tree["parked"] = {str(j.rid): j.parked_state for j in parked}
         path = store.save(self.ckpt_dir, self.round, tree,
-                          meta=self._meta(), overwrite=True)
+                          meta=self._meta(), overwrite=True, tel=self.tel)
         if self.injector is not None:
             self.injector.after_checkpoint(path, self.round)
         self._gc_checkpoints()
@@ -1056,7 +1068,7 @@ class CAServeEngine:
         # strict=False: the checkpoint may carry parked-lattice leaves
         # beyond the groups tree; they are loaded individually below.
         restored = store.restore(self.ckpt_dir, step, target, shardings,
-                                 strict=False)
+                                 strict=False, tel=self.tel)
         for k, g in self.groups.items():
             g.state = restored["groups"][k]
             g.slots = [None] * self.slots
@@ -1136,7 +1148,7 @@ class CAServeEngine:
                                  for k, g in eng.groups.items()}}
                      if mesh is not None else None)
         restored = store.restore(ckpt_dir, step, target, shardings,
-                                 strict=False)
+                                 strict=False, tel=eng.tel)
         for k, g in eng.groups.items():
             g.state = restored["groups"][k]
         eng.round = meta["round"]

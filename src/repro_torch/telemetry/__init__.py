@@ -1,13 +1,13 @@
-"""Telemetry layer: spans, counters, gauges; JSONL sink + summary rollup.
+"""Telemetry layer: spans, counters, events; JSONL sink + summary rollup.
 
 See :mod:`repro_torch.telemetry.core`.  Library code instruments against
 the module-level default instance (``telemetry.span("exchange")``), which
-is disabled -- a true no-op -- until ``telemetry.configure(...)`` turns it
-on.
+is disabled -- a true no-op while no profiler records -- until
+``telemetry.configure(...)`` turns it on.
 """
-from repro_torch.telemetry.core import (Telemetry, configure, count,
-                                        default, event, gauge, span,
-                                        span_stats, summary)
+from repro_torch.telemetry.core import (SpanRecord, Telemetry, configure,
+                                        count, default, event, span,
+                                        summary)
 
-__all__ = ["Telemetry", "configure", "count", "default", "event", "gauge",
-           "span", "span_stats", "summary"]
+__all__ = ["SpanRecord", "Telemetry", "configure", "count", "default",
+           "event", "span", "summary"]

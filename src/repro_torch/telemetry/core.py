@@ -1,43 +1,47 @@
-"""Lightweight telemetry: monotonic-clock spans, counters, gauges.
+"""Lightweight telemetry: wall-clock span records, counters, events.
 
 The serve/kernel stack built exchange overlap, audits, and
 rollback-replay with zero metrics -- nothing recorded how often
 rollbacks fire or where a round's latency budget goes.  This module is
 the measurement layer those systems hang their numbers on:
 
-* ``span(name, **attrs)`` -- a context manager timing one operation on
-  the monotonic clock, with thread-local nesting (child spans carry
-  their parent's id, so a ``serve.round`` decomposes into its
-  ``exchange`` / ``kernel`` / ``audit`` / ``checkpoint`` children);
-* ``count(name, n)`` / ``gauge(name, value)`` -- monotone event tallies
-  and last-value measurements;
+* ``span(name, **attrs)`` -- a context manager timing one operation,
+  with thread-local nesting (child spans carry their parent's name, so a
+  ``serve.round`` decomposes into its ``admit`` / ``kernel`` / ``audit``
+  / ``checkpoint`` children);
+* ``count(name, n)`` -- monotone event tallies;
 * ``event(name, critical=False, **attrs)`` -- a point-in-time record;
   ``critical`` events (rollback, quarantine) flush **and fsync** the
   JSONL sink, so the trace of a fault survives the process death that
   ``CAServeEngine.resume`` recovers from.
 
-Sinks: an in-memory registry (bounded; ``summary()`` rolls spans up to
-count/total/p50/p99/max) and an optional JSONL file -- one
-self-describing object per line (``kind``: span | counter | gauge |
-event), opened line-buffered so every record is its own ``write()``.
+A span's start is ``time.time()`` read as it opens; its duration is a
+``time.perf_counter()`` difference, and its end the start plus that
+duration.  So spans lie on the wall clock, the clock a profiler's device
+timeline is mapped onto, while durations stay monotonic.
 
-Disabled telemetry is a **true no-op**: ``span`` hands back a shared
-null context manager and ``count``/``gauge``/``event`` return before
+Sinks: a bounded in-memory record of every span (``spans()``: name,
+parent, start, end; ``dropped_spans`` counts what the bound evicted), a
+rollup (``summary()``: count/total/p50/p99/max a span name, counters,
+the number of events) and an optional JSONL file -- one self-describing
+object per line (``kind``: span | counter | event; a span's ``wall`` is
+its end), opened line-buffered so every record is its own ``write()``.
+
+**When spans record.**  An enabled instance records everything.  A
+disabled one records spans, into the in-memory record only, while a
+``torch.profiler`` is recording (``torch.autograd.profiler.
+_is_profiler_enabled``), so that a traced run can set the program's own
+spans beside the device's timeline without switching telemetry on.
+Spans are never emitted into the profiler itself: a ``record_function``
+range around kernel launches comes back as a device-side annotation,
+which a reader of device operations would count as device work.
+Otherwise disabled telemetry is a **true no-op**: ``span`` hands back a
+shared null context manager and ``count``/``event`` return before
 touching any state -- no clock reads, no allocation beyond the call
 itself, and (asserted in tests) no numeric change to instrumented code.
 
-While ``torch.compile`` traces a function, wall-clocking the span body
-would time *trace* time, not run time -- and a compiled region re-runs
-without re-tracing.  A span opened while compiling
-(``torch.compiler.is_compiling()``) therefore wraps the body in
-``torch.profiler.record_function`` instead -- plus an NVTX range when
-CUDA is in use -- so the name shows up in ``torch.profiler`` timelines,
-and the span is recorded with ``traced: true`` and the trace-time
-duration (compile-side cost, not step time -- consumers filter on the
-flag).
-
-The counterpart of ``repro/telemetry/core.py``, with the same API and
-the same records.
+The counterpart of ``repro/telemetry/core.py``, with its span, counter
+and event records.
 
 The module-level default instance is what library code instruments
 against (``telemetry.span(...)`` at layer boundaries); ``configure()``
@@ -46,21 +50,30 @@ switches it on and points it at a sink.  Constructing private
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
-import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["Telemetry", "configure", "default", "span", "count", "gauge",
-           "event", "summary", "span_stats"]
+__all__ = ["Telemetry", "SpanRecord", "configure", "default", "span",
+           "count", "event", "summary"]
+
+# Spans kept in memory: a 48 s window of ~8,000 ensemble calls of ~10
+# spans each fits with room.
+MAX_SPANS = 1 << 18
 
 
-def _tracing() -> bool:
-    """True while ``torch.compile`` traces the calling code."""
-    return torch.compiler.is_compiling()
+class SpanRecord(NamedTuple):
+    """One finished span: its name, its parent's name (None at the top)
+    and its start and end in wall-clock seconds."""
+    name: str
+    parent: Optional[str]
+    start: float
+    end: float
 
 
 class _NullSpan:
@@ -78,8 +91,8 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    """One live monotonic-clock span; records itself on exit."""
-    __slots__ = ("_tel", "name", "attrs", "t0", "_parent")
+    """One live span; records itself on exit."""
+    __slots__ = ("_tel", "name", "attrs", "wall0", "t0", "_parent")
 
     def __init__(self, tel: "Telemetry", name: str, attrs: Dict):
         self._tel = tel
@@ -90,73 +103,40 @@ class _Span:
         stack = self._tel._stack()
         self._parent = stack[-1] if stack else None
         stack.append(self.name)
-        self.t0 = time.monotonic()
+        self.wall0 = time.time()
+        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        dur = time.monotonic() - self.t0
+        dur = time.perf_counter() - self.t0
         self._tel._stack().pop()
-        self._tel._record_span(self.name, dur, self._parent, self.attrs,
-                               traced=False)
-        return False
-
-
-class _TracedSpan:
-    """Span opened while ``torch.compile`` traces: names the region
-    (``torch.profiler.record_function``, and an NVTX range when CUDA is
-    in use -- visible in profiler timelines) and records the
-    *trace-time* duration with ``traced: true``."""
-    __slots__ = ("_tel", "name", "attrs", "t0", "_scope", "_nvtx",
-                 "_parent")
-
-    def __init__(self, tel: "Telemetry", name: str, attrs: Dict):
-        self._tel = tel
-        self.name = name
-        self.attrs = attrs
-
-    def __enter__(self):
-        stack = self._tel._stack()
-        self._parent = stack[-1] if stack else None
-        stack.append(self.name)
-        self._scope = torch.profiler.record_function(self.name)
-        self._scope.__enter__()
-        self._nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-        if self._nvtx:
-            torch.cuda.nvtx.range_push(self.name)
-        self.t0 = time.monotonic()
-        return self
-
-    def __exit__(self, *exc):
-        dur = time.monotonic() - self.t0
-        if self._nvtx:
-            torch.cuda.nvtx.range_pop()
-        self._scope.__exit__(*exc)
-        self._tel._stack().pop()
-        self._tel._record_span(self.name, dur, self._parent, self.attrs,
-                               traced=True)
+        self._tel._record_span(self.name, self.wall0, dur, self._parent,
+                               self.attrs)
         return False
 
 
 class Telemetry:
-    """Span/counter/gauge registry with an optional JSONL sink.
+    """Span/counter/event registry with an optional JSONL sink.
 
-    ``max_events`` bounds the in-memory per-span duration lists (oldest
-    halved out) so a long-lived serve process cannot grow without bound;
-    the JSONL sink, when given, keeps the full stream.
+    ``max_events`` bounds the rollup's per-span duration lists and the
+    event list (oldest halved out) and ``max_spans`` the span record, so
+    a long-lived serve process cannot grow without bound; the JSONL
+    sink, when given, keeps the full stream.
     """
 
     def __init__(self, enabled: bool = False,
                  jsonl_path: Optional[str] = None,
-                 max_events: int = 65536):
+                 max_events: int = 65536, max_spans: int = MAX_SPANS):
         self.enabled = enabled
         self.max_events = int(max_events)
         self._lock = threading.Lock()
         self._local = threading.local()
         self._durs: Dict[str, List[float]] = {}
-        self._traced: Dict[str, int] = {}
         self._counters: Dict[str, float] = {}
-        self._gauges: Dict[str, float] = {}
         self._events: List[Dict] = []
+        self._spans: collections.deque = collections.deque(
+            maxlen=int(max_spans))
+        self.dropped_spans = 0
         self._file = None
         self.jsonl_path = None
         if jsonl_path is not None:
@@ -189,33 +169,43 @@ class Telemetry:
         return st
 
     def span(self, name: str, **attrs):
-        """Context manager timing ``name``; the disabled path returns a
-        shared null object (no clock read, no allocation of state)."""
-        if not self.enabled:
+        """Context manager timing ``name``.  Disabled with no profiler
+        recording, it returns a shared null object (no clock read, no
+        allocation of state)."""
+        if not (self.enabled or _autograd_profiler._is_profiler_enabled):
             return _NULL
-        if _tracing():
-            return _TracedSpan(self, name, attrs)
         return _Span(self, name, attrs)
 
-    def _record_span(self, name: str, dur: float, parent: Optional[str],
-                     attrs: Dict, traced: bool) -> None:
+    def _record_span(self, name: str, wall0: float, dur: float,
+                     parent: Optional[str], attrs: Dict) -> None:
+        end = wall0 + dur
         with self._lock:
-            if traced:
-                self._traced[name] = self._traced.get(name, 0) + 1
-            else:
-                d = self._durs.setdefault(name, [])
-                d.append(dur)
-                if len(d) > self.max_events:
-                    del d[:len(d) // 2]
-            rec = {"kind": "span", "name": name, "wall": time.time(),
-                   "dur_s": dur, "traced": traced}
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped_spans += 1
+            # A plain tuple of strings and floats, which the garbage
+            # collector stops tracking (a named tuple it tracks for good:
+            # ~80k of them trigger full collections of ~0.1-0.2 s).
+            self._spans.append((name, parent, wall0, end))
+            if not self.enabled:
+                return
+            d = self._durs.setdefault(name, [])
+            d.append(dur)
+            if len(d) > self.max_events:
+                del d[:len(d) // 2]
+            rec = {"kind": "span", "name": name, "wall": end,
+                   "dur_s": dur, "traced": False}
             if parent:
                 rec["parent"] = parent
             if attrs:
                 rec["attrs"] = attrs
             self._emit(rec)
 
-    # -- counters / gauges / events -----------------------------------------
+    def spans(self) -> List[SpanRecord]:
+        """Every span recorded and not dropped, in the order they ended."""
+        with self._lock:
+            return [SpanRecord._make(r) for r in self._spans]
+
+    # -- counters / events --------------------------------------------------
     def count(self, name: str, n: float = 1) -> None:
         if not self.enabled:
             return
@@ -223,14 +213,6 @@ class Telemetry:
             self._counters[name] = self._counters.get(name, 0) + n
             self._emit({"kind": "counter", "name": name, "wall": time.time(),
                         "n": n})
-
-    def gauge(self, name: str, value: float) -> None:
-        if not self.enabled:
-            return
-        with self._lock:
-            self._gauges[name] = value
-            self._emit({"kind": "gauge", "name": name, "wall": time.time(),
-                        "value": value})
 
     def event(self, name: str, critical: bool = False, **attrs) -> None:
         """Point-in-time record.  ``critical=True`` (rollback,
@@ -252,9 +234,9 @@ class Telemetry:
 
     # -- rollup -------------------------------------------------------------
     def summary(self) -> Dict:
-        """Percentile rollup of everything recorded so far: per-span
-        ``{count, total_s, p50_s, p99_s, max_s}`` (wall spans only;
-        traced spans roll up as a count), counters, gauges."""
+        """Percentile rollup of what an enabled instance recorded: per-span
+        ``{count, total_s, p50_s, p99_s, max_s}``, counters, and the number
+        of events."""
         with self._lock:
             spans = {}
             for name, durs in self._durs.items():
@@ -267,27 +249,9 @@ class Telemetry:
                     "p99_s": d[min(n - 1, (99 * n) // 100)],
                     "max_s": d[-1],
                 }
-            for name, n in self._traced.items():
-                spans.setdefault(name, {}).update(traced_count=n)
             return {"spans": spans,
                     "counters": dict(self._counters),
-                    "gauges": dict(self._gauges),
                     "events": len(self._events)}
-
-    def span_stats(self, name: str) -> Optional[Dict]:
-        """Rollup for one span name -- ``{count, p50_s, p99_s, max_s}``
-        or None if never recorded.  The serve layer's straggler detector
-        and SLO report read single spans this way without paying for the
-        full :meth:`summary` walk."""
-        with self._lock:
-            durs = self._durs.get(name)
-            if not durs:
-                return None
-            d = sorted(durs)
-            n = len(d)
-            return {"count": n, "p50_s": d[(n - 1) // 2],
-                    "p99_s": d[min(n - 1, (99 * n) // 100)],
-                    "max_s": d[-1]}
 
     def events(self, name: Optional[str] = None) -> List[Dict]:
         with self._lock:
@@ -303,10 +267,10 @@ class Telemetry:
     def reset(self) -> None:
         with self._lock:
             self._durs.clear()
-            self._traced.clear()
             self._counters.clear()
-            self._gauges.clear()
             self._events.clear()
+            self._spans.clear()
+            self.dropped_spans = 0
 
     def close(self) -> None:
         with self._lock:
@@ -341,17 +305,9 @@ def count(name: str, n: float = 1) -> None:
     _default.count(name, n)
 
 
-def gauge(name: str, value: float) -> None:
-    _default.gauge(name, value)
-
-
 def event(name: str, critical: bool = False, **attrs) -> None:
     _default.event(name, critical=critical, **attrs)
 
 
 def summary() -> Dict:
     return _default.summary()
-
-
-def span_stats(name: str) -> Optional[Dict]:
-    return _default.span_stats(name)
