@@ -11,18 +11,25 @@ no result line):
    versions, the kernel's nvcc build time, ptxas registers and spills per
    instantiation, resident blocks per SM of each mode at its main tile
    (``ops.kernel_info``; its shared bytes held equal to ``ops.smem_bytes``,
-   which ``pick_tile`` sizes tiles by), the compiled instructions of one
-   word-step per
+   which ``pick_tile`` sizes tiles by), the streamed geometry of the main
+   launch at T = 8 and 1 (strips, rows a block, chunks a warp, threads,
+   blocks an SM, registers, shared bytes held equal to
+   ``ops.stream_geometry``'s, thread word-steps per owned word-step), the
+   compiled instructions of one word-step per
    pipe (``kernels/fhp_step/opcount.py``), which set its bound, and the
-   instructions of the built kernel's round loop (``cuobjdump -sass``);
+   instructions of the built kernels' loops (``cuobjdump -sass``): the
+   tile kernel's two-barrier round loop and the row-streaming kernel's
+   one-barrier wave loop;
 2. parity sweep: the kernel against ``fhp_step_ref`` on the card, bit for
    bit, over fhp2/fhp3/bml x T in {1,2,4,8} x B in {1,3} x p_force in
-   {0, 0.05} x four tiles, static-solid included (``kernels/fhp_step/
+   {0, 0.05} x four block shapes (tiles; strips and shares where the
+   launch streams), static-solid included (``kernels/fhp_step/
    check.py``), on 256 x 4000- and 256 x 4096-node lattices (the second
    takes the kernel's 16-byte copies);
 3. main path: ``core.distributed.make_ensemble_run`` -- the serve engine's
    call -- for 64 fhp2 steps (T = 8, moments every 8) on 4 lanes of the
-   4096 x 32768 cylinder scenario; mass conserved at every recorded step,
+   4096 x 32768 cylinder scenario, every launch streamed (the
+   row-streaming kernel); mass conserved at every recorded step,
    the first launch bit-equal to the plain version, and the static-solid
    twin of lane 0 bit-equal to the 8-plane run.  The counted run is timed
    launch by launch (CUDA events around each launch with its output's
@@ -31,19 +38,21 @@ no result line):
    least and most;
 4. times: kernel ms per launch (CUDA events, 20 launches after warm-up),
    site updates per second and the plain version's ms per launch, at
-   T in {1, 8} and T = 8 static-solid, beside the card's name and power
-   limit; each timed launch is first held bit-equal to its plain version;
-   then the T = 8 launch at each tile shape of ``TILES`` (held bit-equal
-   to the launch above), a band wider than a block covers (bit-equal at
-   T = 1), the per-step time at T in {1, 2, 4, 8}, and the
-   main tile's launch time at those T fitted against the word-steps it
-   issues (what a launch costs besides its steps: loads, stores), the cost
-   model's compute weight re-derived from that fit, and
-   ``ops.autotune_launch``'s single-device pick for this lattice beside
-   the measured sweeps: each timed (tile, T)'s modeled cost against the
-   main tile's next to its measured ms a step against the main tile's
-   (the pick timed too, held bit-equal to the plain version first, when
-   the sweeps did not time it);
+   T in {1, 8} (streamed) and T = 8 static-solid (tiles), beside the
+   card's name and power limit; each timed launch is first held bit-equal
+   to its plain version; the same T = 1 and 8 launches on the tile kernel;
+   then the T = 8 launch at each strip count of ``STRIPS`` and on the tile
+   kernel at each tile shape of ``TILES`` (each held bit-equal to the
+   launch above), a band wider than a block covers (bit-equal at T = 1),
+   the per-step time at T in {1, 2, 4, 8} streamed and on tiles, and the
+   main tile's and the streamed launch's time at those T fitted against
+   the thread word-steps each issues (what a launch costs besides its
+   steps), the tile cost model's compute weight re-derived from the tile
+   fit, and ``ops.autotune_launch``'s single-device pick for this lattice
+   beside the measured tile sweeps: each timed (tile, T)'s modeled cost
+   against the main tile's next to its measured ms a step against the
+   main tile's (the pick timed on tiles too, held bit-equal to the plain
+   version first, when the sweeps did not time it);
 5. extended and K2 parity: the kernel's extended-shard mode through
    ``ops.run_extended`` (y0 = -T, xw0 = -1, global extents larger than the
    array; validity window and moments) and its precomputed-RNG mode
@@ -216,8 +225,10 @@ Every entry's ``max_abs_err`` comes from its timed launch held against the
 plain version.
 
 It ends with a kernels line and, last, ``{"ok": true, "device": ...}``.
-The K1/K3/K4 entries add ``launches_serve`` (phase 8a's launches), K1 and
-K3 ``launches_poiseuille`` (phase 9's), and the
+The K1/K3/K4 entries add ``launches_serve`` (phase 8a's launches),
+``tile_ms`` (the same launch on the tile kernel), K1 and K3
+``launches_poiseuille`` (phase 9's) and ``launches_streamed`` (the main
+path's launches that the row-streaming kernel ran), and the
 K5 entry ``launches_overlap`` (phase 6's overlapped run),
 ``launches_serve_mesh`` (phase 8c's mesh engine), ``split_piece_ms``
 (each piece of the split round) and ``overlap_round`` (phase 7's
@@ -225,6 +236,7 @@ timeline, ms).
 """
 import concurrent.futures
 import contextlib
+import functools
 import json
 import math
 import os
@@ -248,9 +260,11 @@ SWEEP_WD_ALIGNED = 128
 HBM_BYTES_PER_S = 3.35e12
 MESH = ((2, 2), ("data", "model"))
 DEPTH = 8
-# Tile shapes (rows x words) timed at T = 8 in phase 4.
+# Tile shapes (rows x words) timed at T = 8 in phase 4 on the tile kernel,
+# and strip counts of the streamed launch.
 TILES = ((32, 32), (48, 32), (64, 32), (64, 64), (32, 48), (40, 48),
          (64, 48), (32, 112))
+STRIPS = (6, 8, 10, 16)
 # Phase 8: the serve path.
 SERVE_FRAME_EVERY, SERVE_CKPT_EVERY = 16, 4
 SERVE_MESH_HW, SERVE_MESH_STEPS = (1024, 8192), 32
@@ -351,6 +365,45 @@ def _lanes(bh, bw, T) -> float:
     it owns."""
     w = -(-(bw + 2 * T) // 32) * 32
     return sum((bh + 2 * (T - s) - 2) * w for s in range(T)) / (T * bh * bw)
+
+
+def _tile_launch(x, T, bh, bw, rec=()):
+    """One fhp2 launch of ``x`` at p_force ``P_FORCE`` on the tile kernel
+    (``fhp_step_kernel``, bh x bw tiles), where the program streams it:
+    the tile design's time beside the streamed one."""
+    from repro_torch.core import prng, rulespec
+    from repro_torch.kernels.fhp_step import ops
+    h, wd = x.shape[-2:]
+    n_moments = rulespec.moment_spec(rulespec.get_rule("fhp2")).n_moments
+    return ops._launch(x, None, None, None, ops._RULE_ID["fhp2"],
+                       ops._MODE_ID["periodic"], 0, 0, 0, 0, 0, bh, bw, T,
+                       prng.quantize_p(P_FORCE), tuple(rec),
+                       n_moments if rec else 0, (0, h, 0, wd))
+
+
+def _stream_line(card, T, bw, ms, sms) -> str:
+    """A streamed fhp2 launch at T on the main lattice with strips of at
+    most ``bw`` words: its geometry, what the card gives the kernel
+    (``ops.kernel_info``), the rows a block owns, its thread word-steps
+    per owned word-step and its time ``ms`` (None: not timed)."""
+    from repro_torch.kernels.fhp_step import ops
+    wd = WIDTH // 32
+    g = ops.stream_geometry(wd, T, 8, bw)
+    occ = ops.kernel_info("fhp2", "streamed", False, 0, bw, T)
+    if occ["smem_bytes"] != g["smem_bytes"]:
+        raise AssertionError(f"ops.stream_geometry's {g['smem_bytes']} B of "
+                             f"shared memory, the kernel takes "
+                             f"{occ['smem_bytes']}")
+    blocks = sms * occ["blocks_per_sm"]
+    return (f"[stream] {card} | T={T}: {g['strips']} strips of {g['owned']}"
+            f" words (rows {g['words']} words with the apron), "
+            f"{LANES * g['strips'] * HEIGHT / blocks:.1f} rows a block, "
+            f"{g['per_warp']} chunks a warp, {32 * g['warps']} threads, "
+            f"{occ['blocks_per_sm']} blocks/SM, {occ['registers']} registers"
+            f" ({occ['local_bytes']} B local), {occ['smem_bytes']} B shared;"
+            f" thread word-steps per owned "
+            f"{ops.stream_thread_steps(HEIGHT, wd, T, 8, LANES, bw, blocks):.4f}"
+            + ("" if ms is None else f"; {ms:.4f} ms/launch"))
 
 
 def _max_abs_err(a, b) -> int:
@@ -884,7 +937,8 @@ def _sharded_path(dev, planes, out, mom, first, main_s, card, counted,
 def _single_device_pick(planes, card, swept, n_moments, counted) -> None:
     """Phase 4: ``autotune_launch``'s single-device pick for this lattice
     beside the measured tile and T sweeps ``swept`` ((bh, bw, T) -> ms a
-    launch): for each timed point the modeled cost against the main
+    launch on the tile kernel, which the model prices): for each timed
+    point the modeled cost against the main
     tile's at T = 8, beside the measured ms a step against its; the pick
     itself is timed (held bit-equal to the plain version first) where the
     sweeps did not time it."""
@@ -893,10 +947,9 @@ def _single_device_pick(planes, card, swept, n_moments, counted) -> None:
     pick = ops.autotune_launch(HEIGHT, wd, moments_words=n_moments)
     bh, bw, T = pick
     if pick not in swept:
-        kw = dict(p_force=P_FORCE, steps_per_launch=T, block_rows=bh,
-                  block_words=bw)
-        timed = _timed("autotuner's pick", lambda: ops.fhp_step_cuda(
-            planes, 0, **kw), lambda: ref.fhp_step_ref(planes, 0, **kw),
+        timed = _timed("autotuner's pick", functools.partial(
+            _tile_launch, planes, T, bh, bw), lambda: ref.fhp_step_ref(
+                planes, 0, p_force=P_FORCE, steps_per_launch=T),
             planes, T, 0, False, counted)
         swept[pick] = timed[0]
     main = (*ops.pick_tile(HEIGHT, wd, T_MAIN), T_MAIN)
@@ -2292,6 +2345,10 @@ def main() -> int:
             raise AssertionError(f"ops.smem_bytes{(*tile, T, static)} = "
                                  f"{ops.smem_bytes(*tile, T, static)}, the "
                                  f"kernel takes {occ['smem_bytes']}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for T in (T_MAIN, 1):
+        print(_stream_line(card, T, ops.pick_stream(HEIGHT, WIDTH // 32, T,
+                                                    8, LANES), None, sms))
     step, terms = counted["step"], counted["terms"]
     print(f"[bound] compiled fhp2 word-step at p_force {P_FORCE}, per pipe: "
           f"{step}; moment terms per word: {terms}; opcodes of the "
@@ -2309,6 +2366,23 @@ def main() -> int:
               f"{b['total']} instructions, "
               f"{b['total'] / opcount.WORDS_PER_ROUND:.1f} per word-step "
               f"against the probe's {sum(step.values()):.1f}; per pipe "
+              f"{ {k: b[k] for k in ('alu', 'fma', 'popc', 'other')} }, "
+              f"shared loads and stores {b['shared']}")
+    # The streamed kernel of the main launch: its wave loop (one barrier)
+    # holds J words a thread in each of three parity paths (rows of either
+    # parity with compile-time shifts, and the general one).
+    j = ops.stream_geometry(WIDTH // 32, T_MAIN, 8, ops.pick_stream(
+        HEIGHT, WIDTH // 32, T_MAIN, 8, LANES))["per_warp"]
+    waves = [b for b in opcount.loop_bodies(
+        sass, f"fhp_step_stream_kernelI9Rule_fhp2Li{j}E")
+        if b["barriers"] == 1]
+    if waves:
+        b = waves[0]
+        print(f"[sass] fhp2 streamed kernel (J={j}), wave loop (1 barrier, "
+              f"{j} word-steps a thread a wave, 3 parity paths): "
+              f"{b['total']} instructions, {b['total'] / (3 * j):.1f} per "
+              f"word-step of one path against the probe's "
+              f"{sum(step.values()):.1f}; per pipe "
               f"{ {k: b[k] for k in ('alu', 'fma', 'popc', 'other')} }, "
               f"shared loads and stores {b['shared']}")
 
@@ -2348,6 +2422,8 @@ def main() -> int:
           f"{launches} kernel launches, by mode {main_modes}")
     if launches != STEPS // T_MAIN:
         raise AssertionError(f"main path made {launches} kernel launches")
+    if main_modes.get("streamed") != launches:
+        raise AssertionError(f"main path streamed {main_modes} launches")
     if out.shape != planes.shape or mom.shape != (LANES, STEPS // T_MAIN,
                                                   ms.n_moments):
         raise AssertionError(f"shapes {out.shape} {mom.shape}")
@@ -2387,6 +2463,7 @@ def main() -> int:
 
     # -- 4. times -------------------------------------------------------------
     sites = LANES * HEIGHT * WIDTH
+    wd = WIDTH // 32
     dyn, solid = planes[:, :7].contiguous(), planes[0, 7].contiguous()
     results = {}
     for label, T, rec, static in (("T=1", 1, (), False),
@@ -2402,20 +2479,47 @@ def main() -> int:
             counted)
         _print_time(card, label, results[label], sites * T)
     del dyn
+    # The periodic launches above run on the row-streaming kernel; the same
+    # launches on the tile kernel, held bit-equal to them, for the record.
+    tile_ms = {}
+    for label, T, rec in (("T=1", 1, ()),
+                          (f"T={T_MAIN}", T_MAIN, (T_MAIN - 1,))):
+        bh, bw = ops.pick_tile(HEIGHT, wd, T)
+        fn = functools.partial(_tile_launch, planes, T, bh, bw, rec)
+        _held(f"{label} tile launch", fn(), ops.fhp_step_cuda(
+            planes, 0, p_force=P_FORCE, steps_per_launch=T,
+            record_steps=rec))
+        tile_ms[label] = _time_ms(fn, reps=20)
+        print(f"[time] {card} | {label} on tiles {bh} x {bw} "
+              f"(fhp_step_kernel): {tile_ms[label]:.4f} ms/launch against "
+              f"{results[label][0]:.4f} streamed")
 
-    # Tile shapes at T = 8 (rows x words), each held bit-equal to the
-    # launch above, which was held against the plain version; and the
-    # per-step time at T in {1, 2, 4, 8} with pick_tile's tile.
+    # Streamed launches at T = 8 over strip counts, each held bit-equal to
+    # the launch above, with the geometry the card gives each; then tile
+    # shapes at T = 8 (rows x words) on the tile kernel, likewise.
     kw = dict(p_force=P_FORCE, steps_per_launch=T_MAIN)
     want = ops.fhp_step_cuda(planes, 0, **kw)
-    swept = {}      # (bh, bw, T) -> ms a launch, for the model's ratios
-    for bh, bw in TILES:
-        tkw = dict(kw, block_rows=bh, block_words=bw)
-        where = check.first_difference(ops.fhp_step_cuda(planes, 0, **tkw),
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream_ms = {}
+    for ns in STRIPS:
+        bw = -(-wd // ns)
+        if bw > ops.stream_max_owned(T_MAIN):
+            continue
+        skw = dict(kw, block_words=bw)
+        where = check.first_difference(ops.fhp_step_cuda(planes, 0, **skw),
                                        want)
         if where is not None:
+            raise AssertionError(f"{ns} strips differ first at {where}")
+        stream_ms[bw] = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **skw),
+                                 reps=10)
+        print(_stream_line(card, T_MAIN, bw, stream_ms[bw], sms))
+    swept = {}      # (bh, bw, T) -> ms a tile launch, for the model's ratios
+    for bh, bw in TILES:
+        fn = functools.partial(_tile_launch, planes, T_MAIN, bh, bw)
+        where = check.first_difference(fn(), want)
+        if where is not None:
             raise AssertionError(f"tile {(bh, bw)} differs first at {where}")
-        t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
+        t_ms = _time_ms(fn, reps=10)
         swept[bh, bw, T_MAIN] = t_ms
         occ = ops.kernel_info("fhp2", "periodic", False, bh, bw, T_MAIN)
         print(f"[tile] {card} | T={T_MAIN} tile {bh} x {bw}: {t_ms:.4f} "
@@ -2423,52 +2527,77 @@ def main() -> int:
               f"{_lanes(bh, bw, T_MAIN):.3f}x, {occ['blocks_per_sm']} "
               f"blocks/SM, {occ['smem_bytes']} B shared")
     del want
-    # The widest one-row band the kernel took before the row-mapped
-    # redesign, 1208 words at T = 1: it runs as tiles of the widest width a
-    # block covers, bit-equal to the default tile's launch (held against
-    # the plain version above).
+    # The widest one-row band the tile kernel took before the row-mapped
+    # redesign, 1208 words at T = 1: it runs as tiles of the widest width
+    # a block covers, bit-equal to the streamed launch (held against the
+    # plain version above).
     kw1 = dict(p_force=P_FORCE, steps_per_launch=1)
-    where = check.first_difference(
-        ops.fhp_step_cuda(planes, 0, block_rows=1, block_words=1208, **kw1),
-        ops.fhp_step_cuda(planes, 0, **kw1))
+    where = check.first_difference(_tile_launch(planes, 1, 1, 1208),
+                                   ops.fhp_step_cuda(planes, 0, **kw1))
     if where is not None:
         raise AssertionError(f"tile (1, 1208) at T=1 differs first at {where}")
     print(f"[tile] T=1 tile 1 x 1208 (run as 1 x "
-          f"{ops.MAX_TILE_WORDS - 2} tiles): bit-equal to the default tile")
+          f"{ops.MAX_TILE_WORDS - 2} tiles): bit-equal to the streamed launch")
+    # The per-step time at T in {1, 2, 4, 8}: streamed (pick_stream's
+    # strips) and on tiles (pick_tile's), held bit-equal to each other.
     for T in (1, 2, 4, 8):
         tkw = dict(p_force=P_FORCE, steps_per_launch=T)
-        t_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
-        swept[(*ops.pick_tile(HEIGHT, WIDTH // 32, T), T)] = t_ms
-        print(f"[steps] {card} | T={T} tile "
-              f"{ops.pick_tile(HEIGHT, WIDTH // 32, T)}: {t_ms:.4f} ms/launch"
-              f", {t_ms / T:.4f} ms per step")
+        bh, bw = ops.pick_tile(HEIGHT, wd, T)
+        fn = functools.partial(_tile_launch, planes, T, bh, bw)
+        where = check.first_difference(fn(), ops.fhp_step_cuda(planes, 0,
+                                                               **tkw))
+        if where is not None:
+            raise AssertionError(f"T={T}: tiles and strips differ first at "
+                                 f"{where}")
+        s_ms = _time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw), reps=10)
+        t_ms = _time_ms(fn, reps=10)
+        swept[bh, bw, T] = t_ms
+        sbw = ops.pick_stream(HEIGHT, wd, T, 8, LANES)
+        strips = ops.stream_geometry(wd, T, 8, sbw)["strips"]
+        print(f"[steps] {card} | T={T}: streamed ({strips} strips) "
+              f"{s_ms:.4f} ms/launch, {s_ms / T:.4f} ms per step; tile "
+              f"{(bh, bw)} {t_ms:.4f} ms/launch, {t_ms / T:.4f} ms per step")
+        print(_stream_line(card, T, sbw, s_ms, sms))
     # The main tile at each T: launch time against the thread word-steps
     # it issues, fitted as a + b x word-steps; a is what a launch costs
-    # besides its steps (apron loads, stores, launch).
-    bh, bw = ops.pick_tile(HEIGHT, WIDTH // 32, T_MAIN)
-    xs, ys = [], []
-    for T in (1, 2, 4, 8):
-        tkw = dict(p_force=P_FORCE, steps_per_launch=T, block_rows=bh,
-                   block_words=bw)
-        ys.append(_time_ms(lambda: ops.fhp_step_cuda(planes, 0, **tkw),
-                           reps=10))
-        xs.append(_lanes(bh, bw, T) * planes[:, 0].numel() * T)
-    n = len(xs)
-    mx, my = sum(xs) / n, sum(ys) / n
-    b = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
-         / sum((x - mx) ** 2 for x in xs))
-    a = my - b * mx
-    print(f"[split] {card} | tile {bh} x {bw} at T=1, 2, 4, 8: "
-          f"{', '.join(f'{y:.4f}' for y in ys)} ms/launch; fit {a:.4f} ms a "
-          f"launch + {b * 1e9:.4f} ms per 1e9 thread word-steps; at "
-          f"T={T_MAIN} the steps take {1 - a / ys[-1]:.4f} of the launch")
-    # The cost model's compute weight, re-derived from this fit: one
-    # thread word-step against moving one 8-plane word cell (32 B) at the
-    # card's datasheet memory rate.
-    print(f"[model] {card} | one thread word-step {b * 1e6:.4f} ns against "
-          f"{32 / HBM_BYTES_PER_S * 1e9:.4f} ns to move a 32-byte word cell:"
-          f" compute row weight {b * 1e-3 / (32 / HBM_BYTES_PER_S):.4f} "
-          f"(ops.COMPUTE_ROW_WEIGHT = {ops.COMPUTE_ROW_WEIGHT})")
+    # besides its steps (apron loads, stores, launch).  The same for the
+    # streamed launch at pick_stream's strips.
+    bh, bw = ops.pick_tile(HEIGHT, wd, T_MAIN)
+    fits = {}
+    for name, time_at, steps_at in (
+            ("tile", lambda T: _time_ms(functools.partial(
+                _tile_launch, planes, T, bh, bw), reps=10),
+             lambda T: _lanes(bh, bw, T)),
+            ("streamed", lambda T: _time_ms(lambda: ops.fhp_step_cuda(
+                planes, 0, p_force=P_FORCE, steps_per_launch=T), reps=10),
+             lambda T: ops.stream_thread_steps(
+                 HEIGHT, wd, T, 8, LANES, ops.pick_stream(HEIGHT, wd, T, 8,
+                                                          LANES)))):
+        xs, ys = [], []
+        for T in (1, 2, 4, 8):
+            ys.append(time_at(T))
+            xs.append(steps_at(T) * planes[:, 0].numel() * T)
+        n = len(xs)
+        mx, my = sum(xs) / n, sum(ys) / n
+        b = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+        a = my - b * mx
+        fits[name] = b
+        where = f"tile {bh} x {bw}" if name == "tile" else "pick_stream's strips"
+        print(f"[split] {card} | {name}, {where} at T=1, 2, 4, 8: "
+              f"{', '.join(f'{y:.4f}' for y in ys)} ms/launch; fit {a:.4f} ms "
+              f"a launch + {b * 1e9:.4f} ms per 1e9 thread word-steps; at "
+              f"T={T_MAIN} the steps take {1 - a / ys[-1]:.4f} of the launch")
+    # The cost model's compute weight (it prices tiles), re-derived from
+    # the tile fit: one thread word-step against moving one 8-plane word
+    # cell (32 B) at the card's datasheet memory rate.
+    b = fits["tile"]
+    print(f"[model] {card} | one tile thread word-step {b * 1e6:.4f} ns "
+          f"against {32 / HBM_BYTES_PER_S * 1e9:.4f} ns to move a 32-byte "
+          f"word cell: compute row weight "
+          f"{b * 1e-3 / (32 / HBM_BYTES_PER_S):.4f} (ops.COMPUTE_ROW_WEIGHT "
+          f"= {ops.COMPUTE_ROW_WEIGHT}); a streamed thread word-step "
+          f"{fits['streamed'] * 1e6:.4f} ns")
     _single_device_pick(planes, card, swept, ms.n_moments, counted)
 
     k_ms = results[f"T={T_MAIN}"][0]
@@ -2498,14 +2627,19 @@ def main() -> int:
         _entry("fhp_step K1 periodic", "periodic", main_modes["periodic"],
                results["T=1"], card,
                launches_serve=serve_modes["periodic"],
-               launches_poiseuille=pois_modes["periodic"]),
+               launches_poiseuille=pois_modes["periodic"],
+               launches_streamed=main_modes.get("streamed", 0),
+               tile_ms=tile_ms["T=1"]),
         _entry("fhp_step K3 2-D tiles", "tiles", main_modes["periodic"],
                results[f"T={T_MAIN}"], card,
                launches_serve=serve_modes["periodic"],
-               launches_poiseuille=pois_modes["periodic"]),
+               launches_poiseuille=pois_modes["periodic"],
+               launches_streamed=main_modes.get("streamed", 0),
+               tile_ms=tile_ms[f"T={T_MAIN}"]),
         _entry("fhp_step K4 fused moments", "moments", main_modes["moments"],
                results[f"T={T_MAIN}"], card,
-               launches_serve=serve_modes["moments"]),
+               launches_serve=serve_modes["moments"],
+               tile_ms=tile_ms[f"T={T_MAIN}"]),
         _entry("fhp_step K6 static solid, periodic", "static_solid",
                twin_modes["static_solid"],
                results[f"T={T_MAIN} static-solid"], card),

@@ -96,22 +96,32 @@ _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PTXAS_USED = re.compile(r"Used (\d+) registers")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _KERNEL_NAME = re.compile(r"fhp_step_kernelI\d+(\w+?)Lb([01])ELi(\d)E")
+_STREAM_NAME = re.compile(r"fhp_step_stream_kernelI\d+(\w+?)Li(\d)E")
 _MODE_NAMES = ("periodic", "extended", "precomputed_rng")
+
+
+def _kernel_name(mangled: str) -> str:
+    k = _KERNEL_NAME.search(mangled)
+    if k:
+        return (f"{k.group(1).replace('Rule_', '')}"
+                f"{' static' if k.group(2) == '1' else ''} "
+                f"{_MODE_NAMES[int(k.group(3))]}")
+    k = _STREAM_NAME.search(mangled)
+    if k:
+        return f"{k.group(1).replace('Rule_', '')} streamed J={k.group(2)}"
+    return mangled
 
 
 def ptxas_report(text: str) -> list:
     """Registers and spill bytes of each kernel instantiation in ``nvcc
-    -Xptxas -v`` output: dicts of ``kernel`` (rule, static solid, mode),
-    ``registers``, ``spill_stores`` and ``spill_loads``, in build order."""
+    -Xptxas -v`` output: dicts of ``kernel`` (rule, static solid, mode; or
+    rule, ``streamed`` and the chunks a warp J), ``registers``,
+    ``spill_stores`` and ``spill_loads``, in build order."""
     out, cur = [], None
     for line in text.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
-            k = _KERNEL_NAME.search(m.group(1))
-            cur = {"kernel": (f"{k.group(1).replace('Rule_', '')}"
-                              f"{' static' if k.group(2) == '1' else ''} "
-                              f"{_MODE_NAMES[int(k.group(3))]}"
-                              if k else m.group(1))}
+            cur = {"kernel": _kernel_name(m.group(1))}
             out.append(cur)
             continue
         if cur is None:

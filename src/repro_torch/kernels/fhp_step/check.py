@@ -2,12 +2,14 @@
 
 ``run_case`` runs ``ops.run_cuda`` (the kernel on a CUDA tensor) and the
 same steps through ``ref.fhp_step_ref``, one step per call, on the same
-device, over four tiles -- ``pick_tile``'s, a full-width row band, a
-(24, 13) tile that divides neither axis and a 40-row tile 64 - 2T words
-wide (two warps per row) -- with odd ``y0``, nonzero ``xw0`` and ``t0``,
-``2T + 1`` steps (so one remainder launch) and a moments cadence from
-{1, 3, T, 2}.  FHP cases also run the static-solid
-layout and hold it against the 8-plane run.
+device, over four ``(block_rows, block_words)`` -- the defaults, a
+full-width row band, (24, 13), which divides neither axis, and 40 rows
+64 - 2T words wide -- with odd ``y0``, nonzero ``xw0`` and ``t0``, ``2T +
+1`` steps (so one remainder launch) and a moments cadence from {1, 3, T,
+2}.  These periodic launches run on the row-streaming kernel, where the
+pair names the rows a block owns and the widest strip's words.  FHP cases
+also run the static-solid layout (tiles: the pair is the tile) and hold
+it against the 8-plane run.
 
 ``run_extended_case`` does the same for the extended-shard mode through
 ``ops.run_extended``, with a negative ``y0`` (-T), ``xw0`` = -1 and global
@@ -54,7 +56,7 @@ K2_CASES: Tuple[Case, ...] = tuple(
 
 
 def _tiles(T: int, wd: int):
-    """``pick_tile``'s (0, 0), a full-width band of T rows, a tile that
+    """The defaults (0, 0), a full-width band of T rows, a tile that
     divides neither axis, and a tile whose row with its apron fills two
     warps (64 words)."""
     return ((0, 0), (T, wd), (24, 13), (40, 64 - 2 * T))

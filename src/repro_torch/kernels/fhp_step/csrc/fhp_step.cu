@@ -1,5 +1,9 @@
 // Fused, temporally blocked FHP step for Hopper (sm_90a), with a plain C
-// launch interface for ctypes.
+// launch interface for ctypes.  Two kernels: fhp_step_stream_kernel, a
+// row-streaming wavefront, takes every periodic launch without a solid
+// operand whose T level rings fit shared memory (T <= 24 for 8 planes);
+// fhp_step_kernel, the tile design, takes the rest -- static solid,
+// extended shard, precomputed RNG, and periodic launches of larger T.
 //
 // Replaces repro/kernels/fhp_step/kernel.py::fhp_kernel (built by
 // make_fhp_step, kernel.py:489; the pl.pallas_call at kernel.py:600) in
@@ -47,9 +51,29 @@
 //   and the rounds below pq's lowest set bit are predicated off four at
 //   a time.
 // Tensor cores (wgmma, mma) do not apply: the step is bitwise logic,
-// shifts and 32-bit integer hashes, with no matrix product.  Thread-block
-// clusters, which could share apron rows between neighbouring tiles, are
-// left for later.
+// shifts and 32-bit integer hashes, with no matrix product.
+//
+// The tile design repeats the apron's word-steps (a 40 x 48 tile at T = 8
+// issues 1.567 thread word-steps per word-step it owns) and loads, steps
+// and stores each tile in turn.  The row-streaming kernel (fhp_step.cuh,
+// "Row-streaming wavefront", has the schedule and layout) keeps an apron
+// only at the sides of long strips and at the ends of a block's share of
+// rows:
+// - Persistent blocks, as many as the card holds at once, each walk down
+//   a contiguous share of the lanes' strip rows; step level s keeps a
+//   4-row ring in shared memory and computes its row two rows behind
+//   level s - 1, so ONE barrier a wave orders every read after its write.
+//   The main launch (fhp2, 4 x 4096 x 1024 words, T = 8) runs 6 strips of
+//   171 words: 1.165 thread word-steps per owned one.
+// - Input rows stream in by cp.async four waves ahead of use; level T
+//   writes its row from registers straight to device memory, so loading
+//   and storing overlap the steps instead of bracketing them.
+// - A ring row is column-chunked (a word's planes 32 words apart), so the
+//   taps, ring stores and a thread's J words (1 or 2 chunks for 8 planes,
+//   up to 8 for 2) are constant offsets from per-wave pointers; rows of
+//   alternating parity take taps whose shifts are compile-time.
+// - __launch_bounds__(768, 1) leaves up to 80 registers a thread; ptxas
+//   reports no spills for the instantiations the geometry picks.
 //
 // Moments: after each recorded step each thread popcounts its interior
 // words inside the moment window (__popc), the block reduces by warp
@@ -127,6 +151,48 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   store_tile(P, tl, NPS, sm.buf, x, w);
 }
 
+// The row-streaming kernel of the periodic launches without a solid
+// operand (fhp_step.cuh, "Row-streaming wavefront"): persistent blocks, each
+// walking down its share of strip rows in waves of one barrier; J chunks a
+// warp.
+template <class Rule, int J>
+__global__ void __launch_bounds__(32 * STREAM_WARPS, 1)
+    fhp_step_stream_kernel(Params P, StreamGeom S) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int acc[STREAM_WARPS][Rule::N_TERMS];
+  const int x = threadIdx.x, w = threadIdx.y, nt = 32 * S.NWS;
+  const StreamLane ln = make_stream_lane<Rule::NP>(S, x, w);
+  long long g = share_begin(S, blockIdx.x);
+  const long long g1 = share_begin(S, blockIdx.x + 1);
+  while (g < g1) {
+    const Segment sg = make_segment(P, S, g, g1);
+    SegLane<J> sl = make_seg_lane<Rule::NP, J>(P, sg, ln, nt);
+    g += sg.n;
+    int cnt[Rule::N_TERMS];
+    for (int k = 0; k < Rule::N_TERMS; ++k) cnt[k] = 0;
+    if (P.record_mask && x == 0)
+      for (int k = 0; k < Rule::N_TERMS; ++k) acc[w][k] = 0;
+    for (int q = 0; q < STREAM_AHEAD; ++q) {
+      stream_load<Rule::NP, J>(P, S, sg, sl, smem, q, nt);
+      copy_commit();
+    }
+    const int waves = sg.n + 3 * P.T;
+    for (int i = 0; i < waves; ++i) {
+      stream_load<Rule::NP, J>(P, S, sg, sl, smem, i + STREAM_AHEAD, nt);
+      copy_commit();
+      stream_compute<Rule, J>(P, S, sg, ln, sl, smem, i, cnt);
+      copy_wait_ahead();
+      __syncthreads();
+    }
+    if (P.record_mask) {
+      warp_accumulate<Rule::N_TERMS>(acc[w], cnt, x);
+      __syncthreads();
+      stream_flush<Rule>(P, S, sg, acc, x, w);
+      __syncthreads();
+    }
+  }
+}
+
 // What a launch of one instantiation needs and gets; returns a
 // cudaError_t code.  info[]: resident blocks per SM, registers a thread,
 // local (spill) bytes a thread, dynamic shared bytes a block.
@@ -163,12 +229,65 @@ static int launch(const Params& P, cudaStream_t stream, int* info) {
   return (int)cudaGetLastError();
 }
 
+// A streamed launch: its geometry, its blocks (the card's resident blocks
+// of this kernel on every SM unless P.bh > 0), the launch; or, with
+// ``info``, what the kernel gets, as prepare's.
+template <class Rule, int J>
+static int launch_stream(const Params& P, StreamGeom S, cudaStream_t stream,
+                         int* info) {
+  size_t smem = (size_t)stream_smem_words(Rule::NP, S.W, P.T) * 4;
+  auto kern = fhp_step_stream_kernel<Rule, J>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                    32 * S.NWS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (info) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kern);
+    info[0] = blocks;
+    info[1] = fa.numRegs;
+    info[2] = (int)fa.localSizeBytes;
+    info[3] = (int)smem;
+    return (int)e;
+  }
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  S.G = stream_blocks(P, S, blocks * sms);
+  kern<<<S.G, dim3(32, S.NWS), smem, stream>>>(P, S);
+  return (int)cudaGetLastError();
+}
+
+template <class Rule>
+static int launch_stream(const Params& P, cudaStream_t stream, int* info) {
+  if (stream_max_owned(P.T, Rule::NP) < 1) return (int)cudaErrorInvalidValue;
+  StreamGeom S = stream_geom(P.B, P.H, P.Wd, P.T, Rule::NP, P.bw);
+  switch (S.J) {
+    case 1:
+      return launch_stream<Rule, 1>(P, S, stream, info);
+    case 2:
+      return launch_stream<Rule, 2>(P, S, stream, info);
+  }
+  if constexpr (Rule::NP <= 4) {
+    if (S.J == 4) return launch_stream<Rule, 4>(P, S, stream, info);
+    if (S.J == 8) return launch_stream<Rule, 8>(P, S, stream, info);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // Static solid runs in periodic and extended mode only; PRE_RNG is a
-// one-step, 8-plane mode (the reference refuses the same combinations).
+// one-step, 8-plane mode (the reference refuses the same combinations);
+// STREAM is a periodic launch without a solid.
 // With ``info`` the instantiation is prepared and described, not launched.
 template <class Rule>
 static int launch_rule(const Params& P, int mode, cudaStream_t stream,
                        int* info) {
+  if (mode == STREAM && !P.solid) return launch_stream<Rule>(P, stream, info);
   if (P.solid) {
     if constexpr (Rule::SOLID >= 0) {
       if (mode == PERIODIC)
@@ -201,7 +320,9 @@ static int dispatch(const Params& P, int rule, int mode, cudaStream_t st,
 // pointers; `solid` selects static-solid mode, `chi` / `acc` are the
 // precomputed planes of mode 2, `moments` (zeroed by the caller) is
 // written only when record_mask != 0, counting array rows [r0, r1) x
-// words [c0, c1).  `mode`: 0 periodic, 1 extended (hg, wdg), 2 PRE_RNG.
+// words [c0, c1).  `mode`: 0 periodic, 1 extended (hg, wdg), 2 PRE_RNG,
+// 3 periodic by the row-streaming kernel (bh: the rows a block owns, 0 for
+// one block a resident slot of the card; bw: the most words a strip owns).
 extern "C" int fhp_step_launch(const void* in, void* out, const void* solid,
                                const void* chi, const void* acc,
                                void* moments, int rule, int mode, int B,
@@ -212,6 +333,7 @@ extern "C" int fhp_step_launch(const void* in, void* out, const void* solid,
   fhp::Params P = fhp::make_params(in, out, solid, chi, acc, moments, B, H,
                                    Wd, bh, bw, T, t0, y0, xw0, hg, wdg, r0,
                                    r1, c0, c1, pq, record_mask);
+  if (mode == fhp::STREAM) P.bw = bw;  // strips have their own widest
   return fhp::dispatch(P, rule, mode, static_cast<cudaStream_t>(stream),
                        nullptr);
 }
@@ -228,5 +350,6 @@ extern "C" int fhp_step_info(int rule, int mode, int solid, int bh, int bw,
   fhp::Params P = fhp::make_params(dummy, dummy, solid ? dummy : nullptr,
                                    nullptr, nullptr, nullptr, 1, bh, bw, bh,
                                    bw, T, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0);
+  if (mode == fhp::STREAM) P.bw = bw;
   return fhp::dispatch(P, rule, mode, nullptr, info);
 }

@@ -7,10 +7,12 @@
 // static-solid operand and fused moments, in periodic or extended-shard
 // mode; or one step with the random words read from precomputed planes.
 //
-// Every function here is __host__ __device__: fhp_step.cu runs them in a
-// CUDA kernel (one thread block per tile, __syncthreads() between phases),
-// and host_emulate.cpp runs the same functions for every thread of a
-// block, one barrier phase at a time, for the CPU tests.
+// Every function here is __host__ __device__: fhp_step.cu runs them in two
+// CUDA kernels -- the tile kernel (one thread block per tile,
+// __syncthreads() between phases) and, for periodic launches without a
+// solid operand, the row-streaming kernel (section "Row-streaming
+// wavefront" below) -- and host_emulate.cpp runs the same functions for
+// every thread of a block, one barrier phase at a time, for the CPU tests.
 //
 // Threads are row-mapped.  A block is NW = 16 warps of 32 lanes.  A warp
 // takes the columns c and c + 32 of one tile row (c = 64m + lane), so it
@@ -52,6 +54,9 @@
 //              stream (kernel.py:456-459).
 //   PRE_RNG    K2: T = 1; the chirality and force words are read from two
 //              (H, Wd) planes instead of hashed (kernel.py:468-476).
+//   STREAM     a periodic launch without a solid operand, run by the
+//              row-streaming kernel instead of tiles (the section "Row-
+//              streaming wavefront" below); the same result as PERIODIC.
 #pragma once
 #include <stdint.h>
 #include <string.h>
@@ -74,7 +79,7 @@ static __host__ __device__ __forceinline__ uint32_t popc32(uint32_t v) {
 
 namespace fhp {
 
-enum Mode { PERIODIC = 0, EXTENDED = 1, PRE_RNG = 2 };
+enum Mode { PERIODIC = 0, EXTENDED = 1, PRE_RNG = 2, STREAM = 3 };
 
 static const int NW = 16;        // warps per block
 static const int THREADS = 32 * NW;
@@ -671,6 +676,528 @@ static __host__ __device__ __forceinline__ void store_tile(
         }
       }
     }
+}
+
+// ---------------------------------------------------------------------------
+// Row-streaming wavefront: fhp_step_stream_kernel (fhp_step.cu), the
+// launches in periodic mode without a solid operand.
+//
+// A lane's row of Wd words is cut into NS strips, spread evenly (strip k
+// owns words [k Wd / NS, (k + 1) Wd / NS)); a strip row with its T-word
+// apron on each side is Ws = owned + 2T words, at most W.  The strip rows
+// of all lanes, B x NS x H of them in (lane, strip, row) order, are shared
+// out in G contiguous shares, one a block; a share runs as segments, one
+// for each (lane, strip) it touches, and a segment of rows [ra, ra + n)
+// walks down n + 2T input rows (its T-row apron above and below, wrapped
+// mod H) in n + 3T waves, ONE barrier each.
+//
+// Step level L (0 = the input, s = 1 .. T after step s - 1) holds segment
+// row q (lattice row ra - T + q) in a ring in shared memory: slot q mod
+// RING0 for level 0, q mod RING for levels 1 .. T - 1; level T has none.
+// In wave i level s computes row q = i - 2s from level s - 1's rows q - 1,
+// q, q + 1, which it wrote in waves i - 3 .. i - 1 (level 0: loaded by
+// cp.async from wave q - AHEAD on, waited for at the end of wave q).  The
+// slot a level writes in a wave is none that the next level reads in it
+// (q mod 4 against q - 3 .. q - 1), nor one whose row it still needs, so
+// the wave's barrier is the only one.  Level s computes strip columns [s,
+// Ws - s); level T writes its row, the owned columns, from registers to
+// device memory.
+//
+// A ring row is column-chunked: strip column c sits at j = SH + c (SH =
+// (x0 - T) & 3, so a 16-byte source chunk lands on a 16-byte boundary),
+// word (j, plane p) at (j / 32) x 32 NP + 32 p + j mod 32.  A thread's
+// words of every plane, and those of its next chunks, are then constant
+// offsets from one address, so the taps, the ring stores and the J words
+// of a thread take no address arithmetic of their own.
+//
+// Threads: warp w takes level s = w / WPL + 1 and the J 32-word chunks
+// J (w mod WPL) .. of its row, one word a lane in each, so the row's RNG
+// row, parity and counter are warp-uniform and word_step is the tile
+// kernel's.  Where the three rows alternate in parity (everywhere but at
+// the wrap of an odd H) the taps' shifts are compile-time.  Moments after
+// recorded step s - 1 are counted by level s's threads over owned rows and
+// columns inside [r0, r1) x [c0, c1), in registers through a segment, then
+// summed per warp and added with integer atomics.
+// ---------------------------------------------------------------------------
+static const int STREAM_WARPS = 24;   // most warps a block
+static const int STREAM_AHEAD = 4;    // input rows loaded ahead of use
+static const int RING = 4;            // slots of the rings of levels 1 .. T-1
+static const int RING0 = RING + STREAM_AHEAD;  // slots of level 0's ring
+static_assert((RING0 & (RING0 - 1)) == 0 && (RING & (RING - 1)) == 0,
+              "ring slots are taken by masking");
+// Dynamic shared memory a block may take: the card's 227 KB less 1 KB
+// for the static moment counters.
+static const long STREAM_SMEM_BYTES = 232448 - 1024;
+
+// 32-word chunks of a ring row of strip rows of at most W words (the
+// first word sits up to 3 words in).
+static __host__ __device__ __forceinline__ int stream_chunks(int W) {
+  return (W + 3 + 31) / 32;
+}
+
+static __host__ __device__ __forceinline__ int stream_ring_rows(int T) {
+  return RING0 + RING * (T - 1);
+}
+
+static __host__ __device__ __forceinline__ long stream_smem_words(int nps,
+                                                                  int W,
+                                                                  int T) {
+  return (long)stream_ring_rows(T) * stream_chunks(W) * 32 * nps;
+}
+
+// The most 32-word chunks a warp takes: 16 / nps (8 for 2 planes, 2 for
+// 8), as many as the shared memory lets an nps-plane strip need.
+static __host__ __device__ __forceinline__ int stream_max_j(int nps) {
+  int j = 1;
+  while (j < 8 && 2 * j * nps <= 16) j *= 2;
+  return j;
+}
+
+// The least chunks a warp J (1, 2, 4 or 8, at most stream_max_j) under
+// which T levels of rows of W words take at most STREAM_WARPS warps; 0 if
+// none.
+static __host__ __device__ __forceinline__ int stream_chunks_per_warp(
+    int W, int T, int nps) {
+  int nc = stream_chunks(W);
+  for (int j = 1; j <= stream_max_j(nps); j *= 2)
+    if (T * ((nc + j - 1) / j) <= STREAM_WARPS) return j;
+  return 0;
+}
+
+// The most words a strip owns at T with nps planes: its row with the
+// apron within the warps and the shared memory; < 1 when none fits.
+static __host__ __device__ __forceinline__ int stream_max_owned(int T,
+                                                                int nps) {
+  long by_smem = STREAM_SMEM_BYTES / (128L * stream_ring_rows(T) * nps);
+  long by_warps = (long)stream_max_j(nps) * (STREAM_WARPS / T);
+  long nc = by_smem < by_warps ? by_smem : by_warps;
+  return (int)(32 * nc - 3) - 2 * T;
+}
+
+// The streamed geometry of a launch of T steps on rows of Wd words with
+// strips of at most ``bw`` owned words (capped to stream_max_owned); the
+// blocks G are set by the caller.
+struct StreamGeom {
+  int NS;          // strips across a row
+  int W;           // widest strip row with its apron, words
+  int SLOT;        // words of a ring slot: stream_chunks(W) x 32 x NP
+  int J;           // 32-word chunks a warp takes in its level's row
+  int WPL;         // warps a level
+  int NWS;         // warps a block: T x WPL
+  long long rows;  // B x NS x H strip rows
+  int G;           // blocks
+};
+
+static __host__ __device__ __forceinline__ StreamGeom stream_geom(
+    int B, int H, int Wd, int T, int nps, int bw) {
+  StreamGeom S;
+  int most = stream_max_owned(T, nps);
+  if (bw > most) bw = most;
+  if (bw < 1) bw = 1;
+  S.NS = (Wd + bw - 1) / bw;
+  S.W = (Wd + S.NS - 1) / S.NS + 2 * T;
+  S.SLOT = stream_chunks(S.W) * 32 * nps;
+  S.J = stream_chunks_per_warp(S.W, T, nps);
+  S.WPL = (stream_chunks(S.W) + S.J - 1) / S.J;
+  S.NWS = T * S.WPL;
+  S.rows = (long long)B * S.NS * H;
+  S.G = 1;
+  return S;
+}
+
+// Blocks of a streamed launch: one a share of ``bh`` rows of every (lane,
+// strip) when bh > 0, else ``persistent`` (the blocks the card holds at
+// once), never more than the strip rows.
+static __host__ __device__ __forceinline__ int stream_blocks(
+    const Params& P, const StreamGeom& S, int persistent) {
+  long long g = P.bh > 0 ? (long long)P.B * S.NS * ((P.H + P.bh - 1) / P.bh)
+                         : persistent;
+  if (g > S.rows) g = S.rows;
+  return g < 1 ? 1 : (int)g;
+}
+
+// First strip row of block ``blk``'s share (blk = G: the end).
+static __host__ __device__ __forceinline__ long long share_begin(
+    const StreamGeom& S, int blk) {
+  return S.rows * blk / S.G;
+}
+
+// One segment: the rows of a share inside one (lane, strip).
+struct Segment {
+  int b, ra, n;        // lane, first row, rows
+  int x0, width, Ws;   // strip's first word, owned words, owned + 2T
+  int SH;              // (x0 - T) & 3: ring column of strip column 0
+  RowPlan lp;          // load plan of an input row (Ws words from x0 - T)
+};
+
+static __host__ __device__ __forceinline__ Segment make_segment(
+    const Params& P, const StreamGeom& S, long long g, long long g1) {
+  Segment sg;
+  long long sr = g / P.H;  // (lane, strip) index
+  sg.b = (int)(sr / S.NS);
+  int k = (int)(sr - (long long)sg.b * S.NS);
+  sg.ra = (int)(g - sr * P.H);
+  long long end = (sr + 1) * P.H < g1 ? (sr + 1) * P.H : g1;
+  sg.n = (int)(end - g);
+  sg.x0 = (int)((long long)k * P.Wd / S.NS);
+  sg.width = (int)((long long)(k + 1) * P.Wd / S.NS) - sg.x0;
+  sg.Ws = sg.width + 2 * P.T;
+  int g0 = sg.x0 - P.T;
+  sg.SH = g0 & 3;
+  int lo = g0 < 0 ? -g0 : 0;
+  int hi = P.Wd - g0 < sg.Ws ? P.Wd - g0 : sg.Ws;
+  sg.lp = row_plan(sg.Ws, g0, lo, hi < lo ? lo : hi, P.vec);
+  return sg;
+}
+
+// The ring of level L (0 .. T-1): its first word and the slot of segment
+// row q.
+static __host__ __device__ __forceinline__ long ring_base(const StreamGeom& S,
+                                                          int L) {
+  return L == 0 ? 0L : (long)(RING0 + RING * (L - 1)) * S.SLOT;
+}
+
+static __host__ __device__ __forceinline__ int ring_slot(int L, int q) {
+  return q & ((L == 0 ? RING0 : RING) - 1);
+}
+
+// A ring row's word of column j, plane 0 (planes 32 words apart).
+template <int NPS>
+static __host__ __device__ __forceinline__ int ring_word(int j) {
+  return (j >> 5) * (32 * NPS) + (j & 31);
+}
+
+// The segment row level L (1 .. T) takes in wave i, and whether it takes
+// one.
+static __host__ __device__ __forceinline__ int wave_row(int L, int i) {
+  return i - 2 * L;
+}
+
+static __host__ __device__ __forceinline__ bool level_has_row(const Params& P,
+                                                              const Segment& sg,
+                                                              int L, int q) {
+  return q >= L && q < sg.n + 2 * P.T - L;
+}
+
+// What a thread keeps for a launch: its level, its first ring column and
+// where its words and their neighbours sit in a ring row.
+struct StreamLane {
+  int s;     // level 1 .. T
+  int j0;    // first ring column: 32 J (w mod WPL) + x
+  int tid;   // thread index in the block
+  int at;    // ring_word(j0)
+  int lf;    // offset of the word to the left (column j0 - 1) from ``at``
+  int rt;    // ... and to the right (j0 + 1)
+};
+
+template <int NPS>
+static __host__ __device__ __forceinline__ StreamLane make_stream_lane(
+    const StreamGeom& S, int x, int w) {
+  StreamLane ln;
+  ln.s = w / S.WPL + 1;
+  ln.j0 = 32 * S.J * (w - (ln.s - 1) * S.WPL) + x;
+  ln.tid = w * 32 + x;
+  ln.at = ring_word<NPS>(ln.j0);
+  ln.lf = x > 0 ? -1 : 31 - 32 * NPS;
+  ln.rt = x < 31 ? 1 : 32 * NPS - 31;
+  return ln;
+}
+
+// A column of the strip row's source, x0 - T + c, wrapped into [0, Wd):
+// by one add or subtract where the apron is no wider than the lattice.
+static __host__ __device__ __forceinline__ int wrap_col(int a, int n) {
+  if (a < 0) a += n;
+  if (a >= n) a -= n;
+  if (a < 0 || a >= n) a = pmod(a, n);
+  return a;
+}
+
+static __host__ __device__ __forceinline__ int next_row(int y, int H) {
+  return y + 1 == H ? 0 : y + 1;
+}
+
+// What a thread keeps for a segment: which of its J words its level
+// computes, which it counts moments of, their RNG columns, its copies of
+// an input row (the first STREAM_COPIES of its block-strided (plane, plan
+// unit) pairs, p-major), and two running lattice rows.
+static const int STREAM_COPIES = 2;
+
+template <int J>
+struct SegLane {
+  uint32_t active;   // bit m: word m lies in [s, Ws - s)
+  uint32_t counted;  // bit m: owned, and its array word in [c0, c1)
+  uint32_t rcol[J];  // RNG column of word m: xw0 + (x0 - T + c) mod Wd
+  int ncp;           // copies kept below (the rest: ``more``)
+  uint32_t wide;     // bit k: copy k moves 16 bytes
+  int cdst[STREAM_COPIES];   // ring word of copy k in slot 0
+  long csrc[STREAM_COPIES];  // its source word from the lane's row, plane 0
+  int more;          // first copy past STREAM_COPIES (found per row)
+  int ly;            // lattice row of the next input row to load
+  int cy;            // lattice row of the level's row in the coming wave
+};
+
+// The source word and the ring word of copy v of an input row.
+template <int NPS>
+static __host__ __device__ __forceinline__ void copy_of(
+    const Params& P, const Segment& sg, int v, long* src, int* dst,
+    bool* wide) {
+  const int p = v / sg.lp.units, u = v - p * sg.lp.units;
+  const int c = sg.lp.col(u), g0 = sg.x0 - P.T;
+  *wide = sg.lp.chunk(u);
+  *src = (long)p * P.H * P.Wd + (*wide ? g0 + c : wrap_col(g0 + c, P.Wd));
+  *dst = ring_word<NPS>(sg.SH + c) + 32 * p;
+}
+
+template <int NPS, int J>
+static __host__ __device__ __forceinline__ SegLane<J> make_seg_lane(
+    const Params& P, const Segment& sg, const StreamLane& ln, int nt) {
+  SegLane<J> sl;
+  sl.active = sl.counted = 0;
+  const int s = ln.s;
+  int lx = pmod(sg.x0 - P.T + ln.j0 - sg.SH, P.Wd);
+  for (int m = 0; m < J; ++m) {
+    const int c = ln.j0 + 32 * m - sg.SH;  // strip column
+    if (m) lx = wrap_col(lx + 32, P.Wd);
+    sl.rcol[m] = (uint32_t)P.xw0 + (uint32_t)lx;
+    const int ax = sg.x0 - P.T + c;
+    if (c >= s && c < sg.Ws - s) sl.active |= 1u << m;
+    if (c >= P.T && c < P.T + sg.width && ax >= P.c0 && ax < P.c1)
+      sl.counted |= 1u << m;
+  }
+  const int copies = NPS * sg.lp.units;
+  sl.ncp = 0;
+  sl.wide = 0;
+  for (int k = 0; k < STREAM_COPIES; ++k) {
+    sl.cdst[k] = 0;
+    sl.csrc[k] = 0;
+    const int v = ln.tid + k * nt;
+    if (v >= copies) continue;
+    bool wide;
+    copy_of<NPS>(P, sg, v, &sl.csrc[k], &sl.cdst[k], &wide);
+    if (wide) sl.wide |= 1u << k;
+    ++sl.ncp;
+  }
+  sl.more = ln.tid + STREAM_COPIES * nt;
+  sl.ly = pmod(sg.ra - P.T, P.H);
+  sl.cy = pmod(sg.ra - P.T - 2 * s, P.H);
+  return sl;
+}
+
+// Load of input row q (issued AHEAD waves before it is needed): the
+// thread's copies.  Called for q = 0, 1, ... in turn (it steps ``ly``).
+template <int NPS, int J>
+static __host__ __device__ __forceinline__ void stream_load(
+    const Params& P, const StreamGeom& S, const Segment& sg, SegLane<J>& sl,
+    uint32_t* ring0, int q, int nt) {
+  if (q >= sg.n + 2 * P.T) return;
+  const uint32_t* src = P.in + ((long)sg.b * NPS * P.H + sl.ly) * P.Wd;
+  uint32_t* dst = ring0 + ring_slot(0, q) * S.SLOT;
+  sl.ly = next_row(sl.ly, P.H);
+  for (int k = 0; k < STREAM_COPIES; ++k) {
+    if (k >= sl.ncp) break;
+    if ((sl.wide >> k) & 1u)
+      copy16(dst + sl.cdst[k], src + sl.csrc[k]);
+    else
+      copy4(dst + sl.cdst[k], src + sl.csrc[k]);
+  }
+  for (int v = sl.more; v < NPS * sg.lp.units; v += nt) {
+    long so;
+    int d;
+    bool wide;
+    copy_of<NPS>(P, sg, v, &so, &d, &wide);
+    if (wide)
+      copy16(dst + d, src + so);
+    else
+      copy4(dst + d, src + so);
+  }
+}
+
+// Streaming reads of one level from its ring for one word: ``c[k]``,
+// ``l[k]`` and ``r[k]`` point at the word and its left and right
+// neighbours in source rows r + 1, r, r - 1 (k = dy + 1 for source row
+// r - dy), plane 0, planes 32 words apart.  PAR = 0 or 1: the rows
+// alternate in parity and row r's is PAR, so each tap's shift is known at
+// compile time; PAR = -1: ``odd`` holds the three parities.
+template <int PAR>
+struct RingReader {
+  const uint32_t* c[3];
+  const uint32_t* l[3];
+  const uint32_t* r[3];
+  int odd[3];  // odd[dy + 1]: parity of source row r - dy (PAR = -1)
+
+  __host__ __device__ __forceinline__ uint32_t tap(int plane, int dx0,
+                                                   int dx1, int dy) const {
+    const int k = dy + 1;
+    const int o = PAR < 0 ? odd[k] : (PAR ^ (dy & 1));
+    const int dx = o ? dx1 : dx0;
+    const uint32_t v = c[k][32 * plane];
+    if (dx == 0) return v;
+    return stream_word(v, (dx > 0 ? l[k] : r[k])[32 * plane], dx);
+  }
+
+  // The same reader for the word ``n`` words further in every row.
+  __host__ __device__ __forceinline__ RingReader shifted(int n) const {
+    RingReader rd = *this;
+    for (int k = 0; k < 3; ++k) {
+      rd.c[k] += n;
+      rd.l[k] += n;
+      rd.r[k] += n;
+    }
+    return rd;
+  }
+};
+
+// The block's moment counters: a warp's sum over its lanes added into its
+// own row ``acc`` (REDUX on the card; each thread in turn on the host).
+template <int N>
+static __host__ __device__ __forceinline__ void warp_accumulate(int* acc,
+                                                                const int* cnt,
+                                                                int x) {
+#ifdef __CUDA_ARCH__
+  for (int k = 0; k < N; ++k) {
+    int v = __reduce_add_sync(0xFFFFFFFFu, cnt[k]);
+    if (x == 0) acc[k] += v;
+  }
+#else
+  (void)x;
+  for (int k = 0; k < N; ++k) acc[k] += cnt[k];
+#endif
+}
+
+static __host__ __device__ __forceinline__ void add_moment(int32_t* dst,
+                                                           int v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(dst, v);
+#else
+  *dst = (int32_t)((uint32_t)*dst + (uint32_t)v);
+#endif
+}
+
+// The J words of a thread in one wave: word_step on each active one, the
+// result into level s's ring at smem[ring] (planes 32 words apart, word m
+// 32 NP further) or, at level T (``out`` set), into the output row
+// (planes ``plane`` words apart, word m 32 further), and its moment terms
+// into ``cnt`` where counted.
+template <class Rule, int J, int PAR>
+static __host__ __device__ __forceinline__ void stream_words(
+    const Params& P, const SegLane<J>& sl, const RingReader<PAR>& rd,
+    uint32_t rrow, uint32_t t, uint32_t* smem, long ring, uint32_t* out,
+    long plane, bool rec, int* cnt) {
+  const int CH = 32 * Rule::NP;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int m = 0; m < J; ++m) {
+    if (!((sl.active >> m) & 1u)) continue;
+    uint32_t o[Rule::NP];
+    word_step<Rule>(rd.shifted(m * CH), rrow, sl.rcol[m], t, P.pq, P.pq_lo,
+                    P.pq_bits, o);
+    if (out) {
+      for (int p = 0; p < Rule::NP; ++p) out[p * plane + 32 * m] = o[p];
+    } else {
+      for (int p = 0; p < Rule::NP; ++p) smem[ring + m * CH + 32 * p] = o[p];
+    }
+    if (rec && ((sl.counted >> m) & 1u)) Rule::terms(o, cnt);
+  }
+}
+
+// Compute of wave i, thread ``ln``: level s's row q = i - 2s, its J words.
+// Called for every wave in turn (it steps ``cy``); does nothing more where
+// the level takes no row this wave (warp-uniform).  ``cnt`` are the
+// thread's moment counters of the segment.
+template <class Rule, int J>
+static __host__ __device__ __forceinline__ void stream_compute(
+    const Params& P, const StreamGeom& S, const Segment& sg,
+    const StreamLane& ln, SegLane<J>& sl, uint32_t* smem, int i, int* cnt) {
+  const int s = ln.s, q = wave_row(s, i);
+  const int gy = sl.cy;  // lattice row of segment row q, wrapped
+  sl.cy = next_row(gy, P.H);
+  if (!level_has_row(P, sg, s, q)) return;
+  const int T = P.T;
+  const int gn = next_row(gy, P.H);
+  const int gp = gy == 0 ? P.H - 1 : gy - 1;
+  const uint32_t rrow = (uint32_t)P.y0 + (uint32_t)gy;
+  const int odd[3] = {(int)(((uint32_t)P.y0 + (uint32_t)gn) & 1u),
+                      (int)(rrow & 1u),
+                      (int)(((uint32_t)P.y0 + (uint32_t)gp) & 1u)};
+  const int L = s - 1;
+  const uint32_t* in = smem + ring_base(S, L) + ln.at;
+  const uint32_t* rows[3];
+  for (int k = 0; k < 3; ++k) rows[k] = in + ring_slot(L, q + 1 - k) * S.SLOT;
+  const uint32_t t = P.t0 + (uint32_t)L;
+  long ring = 0;
+  uint32_t* out = nullptr;
+  const long plane = (long)P.H * P.Wd;
+  if (s == T) {
+    const int r = sg.ra - T + q;  // an owned row: inside [0, H)
+    out = P.out + ((long)sg.b * Rule::NP * P.H + r) * P.Wd + sg.x0 - T +
+          ln.j0 - sg.SH;
+  } else {
+    ring = ring_base(S, s) + ring_slot(s, q) * S.SLOT + ln.at;
+  }
+  const bool rec = ((P.record_mask >> L) & 1) && q >= T && q < sg.n + T &&
+                   sg.ra - T + q >= P.r0 && sg.ra - T + q < P.r1;
+  const uint32_t* lr[3] = {rows[0] + ln.lf, rows[1] + ln.lf, rows[2] + ln.lf};
+  const uint32_t* rr[3] = {rows[0] + ln.rt, rows[1] + ln.rt, rows[2] + ln.rt};
+  if (odd[0] == odd[2] && odd[0] != odd[1]) {
+    if (odd[1]) {
+      const RingReader<1> rd = {{rows[0], rows[1], rows[2]},
+                                {lr[0], lr[1], lr[2]},
+                                {rr[0], rr[1], rr[2]},
+                                {0, 1, 0}};
+      stream_words<Rule, J, 1>(P, sl, rd, rrow, t, smem, ring, out, plane, rec,
+                               cnt);
+    } else {
+      const RingReader<0> rd = {{rows[0], rows[1], rows[2]},
+                                {lr[0], lr[1], lr[2]},
+                                {rr[0], rr[1], rr[2]},
+                                {1, 0, 1}};
+      stream_words<Rule, J, 0>(P, sl, rd, rrow, t, smem, ring, out, plane, rec,
+                               cnt);
+    }
+  } else {
+    const RingReader<-1> rd = {{rows[0], rows[1], rows[2]},
+                               {lr[0], lr[1], lr[2]},
+                               {rr[0], rr[1], rr[2]},
+                               {odd[0], odd[1], odd[2]}};
+    stream_words<Rule, J, -1>(P, sl, rd, rrow, t, smem, ring, out, plane, rec,
+                              cnt);
+  }
+}
+
+// After a segment's last wave, and once the warps have summed their
+// threads' counters into their rows of ``acc`` (warp_accumulate), thread
+// (x, 0) with x < T adds level x + 1's moments (its warps' sums) into
+// record popc(mask below x) of lane b.
+template <class Rule>
+static __host__ __device__ __forceinline__ void stream_flush(
+    const Params& P, const StreamGeom& S, const Segment& sg,
+    int (*acc)[Rule::N_TERMS], int x, int w) {
+  if (w != 0 || x >= P.T || !((P.record_mask >> x) & 1)) return;
+  int cnt[Rule::N_TERMS];
+  for (int k = 0; k < Rule::N_TERMS; ++k) cnt[k] = 0;
+  for (int v = x * S.WPL; v < (x + 1) * S.WPL; ++v)
+    for (int k = 0; k < Rule::N_TERMS; ++k) cnt[k] += acc[v][k];
+  int m[Rule::N_MOMENTS];
+  Rule::combine(cnt, m);
+  int rec = popc32((uint32_t)P.record_mask & ((1u << x) - 1u));
+  int32_t* dst =
+      P.moments + ((long)sg.b * P.n_rec + rec) * Rule::N_MOMENTS;
+  for (int k = 0; k < Rule::N_MOMENTS; ++k) add_moment(dst + k, m[k]);
+}
+
+// cp.async groups: one committed a wave; a wave ends when all but the last
+// AHEAD groups (the rows still ahead) have landed.
+static __host__ __device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+static __host__ __device__ __forceinline__ void copy_wait_ahead() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(STREAM_AHEAD));
+#endif
 }
 
 }  // namespace fhp

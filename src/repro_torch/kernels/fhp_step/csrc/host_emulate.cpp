@@ -9,6 +9,7 @@
 // their own tests.
 // Build with
 //   g++ -std=c++17 -O1 -shared -fPIC -o libfhp_host.so host_emulate.cpp
+#include <algorithm>
 #include <vector>
 
 #include "fhp_step.cuh"
@@ -80,9 +81,81 @@ int run_blocks(const Params& P) {
   return 0;
 }
 
+// The row-streaming kernel: every block's share in turn, segment by
+// segment; per wave the input-row loads of every thread (host copies land
+// at once, so a compute that read a slot being loaded would see the new
+// row), then the compute of every thread in reverse order (a write that a
+// thread of the same wave reads would show), then the barrier; after each
+// segment the warps' sums of their threads' moment counters, then the
+// flush.  HOST_PERSISTENT_BLOCKS stands for the blocks the card holds.
+const int HOST_PERSISTENT_BLOCKS = 5;
+
+template <class Rule, int J>
+int run_stream(const Params& P, StreamGeom S) {
+  S.G = stream_blocks(P, S, HOST_PERSISTENT_BLOCKS);
+  std::vector<uint32_t> smem(stream_smem_words(Rule::NP, S.W, P.T));
+  std::vector<int> acc(STREAM_WARPS * Rule::N_TERMS);
+  typedef int Row[Rule::N_TERMS];
+  Row* rows = reinterpret_cast<Row*>(acc.data());
+  const int nt = 32 * S.NWS;
+  std::vector<StreamLane> lanes(nt);
+  std::vector<SegLane<J>> segl(nt);
+  std::vector<int> cnt(nt * Rule::N_TERMS);
+  for (int i = 0; i < nt; ++i)
+    lanes[i] = make_stream_lane<Rule::NP>(S, i & 31, i >> 5);
+  for (int blk = 0; blk < S.G; ++blk) {
+    long long g = share_begin(S, blk), g1 = share_begin(S, blk + 1);
+    while (g < g1) {
+      Segment sg = make_segment(P, S, g, g1);
+      for (int i = 0; i < nt; ++i)
+        segl[i] = make_seg_lane<Rule::NP, J>(P, sg, lanes[i], nt);
+      g += sg.n;
+      std::fill(acc.begin(), acc.end(), 0);
+      std::fill(cnt.begin(), cnt.end(), 0);
+      for (int q = 0; q < STREAM_AHEAD; ++q)
+        for (int i = 0; i < nt; ++i)
+          stream_load<Rule::NP, J>(P, S, sg, segl[i], smem.data(), q, nt);
+      for (int wv = 0; wv < sg.n + 3 * P.T; ++wv) {
+        for (int i = 0; i < nt; ++i)
+          stream_load<Rule::NP, J>(P, S, sg, segl[i], smem.data(),
+                                   wv + STREAM_AHEAD, nt);
+        for (int i = nt - 1; i >= 0; --i)
+          stream_compute<Rule, J>(P, S, sg, lanes[i], segl[i], smem.data(),
+                                  wv, &cnt[i * Rule::N_TERMS]);
+      }
+      if (P.record_mask) {
+        for (int i = 0; i < nt; ++i)
+          warp_accumulate<Rule::N_TERMS>(rows[i >> 5], &cnt[i * Rule::N_TERMS],
+                                         i & 31);
+        for (int i = 0; i < nt; ++i)
+          stream_flush<Rule>(P, S, sg, rows, i & 31, i >> 5);
+      }
+    }
+  }
+  return 0;
+}
+
+template <class Rule>
+int run_stream(const Params& P) {
+  if (stream_max_owned(P.T, Rule::NP) < 1) return 1;
+  StreamGeom S = stream_geom(P.B, P.H, P.Wd, P.T, Rule::NP, P.bw);
+  switch (S.J) {
+    case 1:
+      return run_stream<Rule, 1>(P, S);
+    case 2:
+      return run_stream<Rule, 2>(P, S);
+  }
+  if constexpr (Rule::NP <= 4) {
+    if (S.J == 4) return run_stream<Rule, 4>(P, S);
+    if (S.J == 8) return run_stream<Rule, 8>(P, S);
+  }
+  return 1;
+}
+
 // The mode combinations fhp_step.cu's launch_rule accepts.
 template <class Rule>
 int run_rule(const Params& P, int mode) {
+  if (mode == STREAM && !P.solid) return run_stream<Rule>(P);
   if (P.solid) {
     if constexpr (Rule::SOLID >= 0) {
       if (mode == PERIODIC) return run_blocks<Rule, true, PERIODIC>(P);
@@ -109,6 +182,7 @@ extern "C" int fhp_step_host(const void* in, void* out, const void* solid,
   Params P = make_params(in, out, solid, chi, acc, moments, B, H, Wd, bh, bw,
                          T, t0, y0, xw0, hg, wdg, r0, r1, c0, c1, pq,
                          record_mask);
+  if (mode == STREAM) P.bw = bw;
 #define FHP_CASE(R) \
   case R::ID:       \
     return run_rule<R>(P, mode);
@@ -174,4 +248,54 @@ extern "C" void fhp_bernoulli_host(const unsigned* rows, const unsigned* cols,
   for (int i = 0; i < n; ++i)
     out[i] = fhp::bernoulli_word(rows[i], cols[i], t, pq, P.pq_lo,
                                  P.pq_bits);
+}
+
+// The streamed geometry of a launch (stream_geom): out[0] strips, out[1]
+// the widest strip row with its apron (words), out[2] the words of a ring
+// slot,
+// out[3] chunks a warp, out[4] warps a block, out[5] dynamic shared bytes;
+// out[6] the most words a strip can own (< 1: the launch cannot stream,
+// and out[0 .. 5] are left as they are).
+extern "C" void fhp_stream_geometry_host(int Wd, int T, int nps, int bw,
+                                         int* out) {
+  out[6] = stream_max_owned(T, nps);
+  if (out[6] < 1) return;
+  StreamGeom S = stream_geom(1, 1, Wd, T, nps, bw);
+  out[0] = S.NS;
+  out[1] = S.W;
+  out[2] = S.SLOT;
+  out[3] = S.J;
+  out[4] = S.NWS;
+  out[5] = (int)(4 * stream_smem_words(nps, S.W, T));
+}
+
+// The wave schedule of a segment of n rows at T, for waves [0, n + 3T):
+// per wave and level L in 0 .. T, the segment row the level writes (level
+// 0: the input row whose load is issued, AHEAD rows ahead) or -1, and the
+// ring slot it goes to (-1 for level T, which writes device memory); per
+// wave and level s in 1 .. T the slots of the three rows it reads, or -1.
+// ``written`` is (waves, T + 1, 2), ``read`` (waves, T, 3).
+extern "C" int fhp_stream_schedule_host(int T, int n, int* written,
+                                        int* read) {
+  Params P;
+  P.T = T;
+  Segment sg;
+  sg.n = n;
+  int waves = n + 3 * T;
+  for (int i = 0; i < waves; ++i) {
+    for (int L = 0; L <= T; ++L) {
+      int q = L == 0 ? i + STREAM_AHEAD : wave_row(L, i);
+      bool on = L == 0 ? q < n + 2 * T : level_has_row(P, sg, L, q);
+      int* o = written + (i * (T + 1) + L) * 2;
+      o[0] = on ? q : -1;
+      o[1] = on && L < T ? ring_slot(L, q) : -1;
+    }
+    for (int s = 1; s <= T; ++s) {
+      int q = wave_row(s, i);
+      bool on = level_has_row(P, sg, s, q);
+      for (int k = 0; k < 3; ++k)
+        read[(i * T + s - 1) * 3 + k] = on ? ring_slot(s - 1, q + 1 - k) : -1;
+    }
+  }
+  return waves;
 }

@@ -4,7 +4,8 @@
 ``repro.kernels.fhp_step.ops.fhp_step_pallas``: ``steps_per_launch`` = T
 fused stream -> collide (-> force) steps in one launch on ``(NPS, H, Wd)``
 or batched ``(B, NPS, H, Wd)`` int32 planes (lanes share the RNG stream),
-``block_rows``/``block_words`` as the CUDA tile, ``solid=`` for the
+``block_rows``/``block_words`` as the CUDA tile (on a streamed launch:
+the rows a block owns and the widest strip's words), ``solid=`` for the
 static-geometry layout, ``record_steps`` for fused moments,
 ``extended=True`` (with ``hg``/``wdg``) for a halo-extended shard and
 ``rng_in_kernel=False`` for one step with precomputed random words.
@@ -21,7 +22,12 @@ H100's rates.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel
 (``csrc/fhp_step.cu``, built at first use) or raises; a CPU tensor takes
-the plain version (``ref.fhp_step_ref``); any other device raises.
+the plain version (``ref.fhp_step_ref``); any other device raises.  On
+the card a periodic launch without a solid operand runs on the
+row-streaming kernel wherever its rings fit (``stream_max_owned``), in
+strips ``pick_stream`` sizes; every other launch runs on tiles
+(``pick_tile``).  ``launch_cost``, ``COMPUTE_ROW_WEIGHT`` and the
+autotuner price the tile design.
 
 The CUDA tile need not divide the lattice (edge tiles mask their stores
 and moments), so the reference's ``block_words | Wd`` rule and its row and
@@ -52,8 +58,9 @@ from repro_torch.roofline import trace as rtrace
 
 # Kernel launches since the count was last cleared, by mode ("periodic",
 # "static_solid", "extended", "extended_static_solid", "precomputed_rng");
-# "moments" counts the launches that also record moments.  Read by
-# chip_smoke and the benchmark; ``launches_total`` sums the modes.
+# "moments" counts the launches that also record moments, "streamed" the
+# periodic launches that the row-streaming kernel ran.  Read by chip_smoke
+# and the benchmark; ``launches_total`` sums the modes.
 LAUNCHES: collections.Counter = collections.Counter()
 
 SMEM_BYTES_PER_BLOCK = 232_448    # H100: 227 KB of shared memory per block
@@ -68,12 +75,30 @@ MAX_TILE_WORDS = 1024
 MAX_STEPS_PER_LAUNCH = 8          # run_extended's default T
 _GRID_YZ_LIMIT = 65_535
 _RULE_ID = {name: i for i, name in enumerate(codegen.RULES)}
-_MODE_ID = {"periodic": 0, "extended": 1, "precomputed_rng": 2}  # its Mode
+# The kernel's Mode: "streamed" is a periodic launch by the row-streaming
+# kernel.
+_MODE_ID = {"periodic": 0, "extended": 1, "precomputed_rng": 2,
+            "streamed": 3}
+# The row-streaming kernel (csrc/fhp_step.cuh, "Row-streaming wavefront"):
+# warps a block at most, input rows loaded ahead, ring slots of levels
+# 1 .. T-1 (level 0 has STREAM_RING + STREAM_AHEAD), the dynamic shared
+# memory a block may take (227 KB less 1 KB of static moment counters), and
+# the SMs whose persistent blocks ``pick_stream`` prices (H100 SXM).
+STREAM_WARPS = 24
+STREAM_AHEAD = 4
+STREAM_RING = 4
+STREAM_SMEM_BYTES = SMEM_BYTES_PER_BLOCK - 1024
+STREAM_SMS = 132
+# Registers a thread under the kernel's launch bounds (65,536 over 768
+# threads, in steps of 8): what ``stream_blocks_per_sm`` assumes.
+STREAM_REGS = 80
+_COUNTED_APART = ("moments", "streamed")   # not modes: kept out of the total
 
 
 def launches_total() -> int:
     """Kernel launches of every mode since ``LAUNCHES`` was cleared."""
-    return sum(n for mode, n in LAUNCHES.items() if mode != "moments")
+    return sum(n for mode, n in LAUNCHES.items()
+               if mode not in _COUNTED_APART)
 
 
 def rng_words(shape, t: int, *, p_force: float = 0.0, y0: int = 0,
@@ -131,6 +156,146 @@ def pick_tile(h: int, wd: int, steps: int = 1, static_solid: bool = False,
         rows //= 2
     raise ValueError(f"no valid tile for H={h}, Wd={wd}, "
                      f"steps_per_launch={steps}")
+
+
+# --------------------------------------------------------------------------
+# The row-streaming kernel's geometry (``stream_geom`` in csrc/fhp_step.cuh).
+
+def _ring_rows(steps: int) -> int:
+    return STREAM_RING + STREAM_AHEAD + STREAM_RING * (steps - 1)
+
+
+def stream_max_j(n_planes: int) -> int:
+    """The most 32-word chunks a warp takes: 16 // ``n_planes`` as a power
+    of two, 1 to 8 (8 for 2 planes, 2 for 8): as many as the shared memory
+    lets a strip of so many planes need."""
+    j = 1
+    while j < 8 and 2 * j * n_planes <= 16:
+        j *= 2
+    return j
+
+
+def stream_max_owned(steps: int, n_planes: int = 8) -> int:
+    """The most words a strip can own at T = ``steps``: its row with the
+    2T-word apron, 3 words of alignment and the rest of its last 32-word
+    chunk within STREAM_WARPS warps (at most ``stream_max_j`` chunks a
+    warp, T levels) and its T level rings within ``STREAM_SMEM_BYTES``.
+    Below 1 the launch cannot stream."""
+    by_smem = STREAM_SMEM_BYTES // (128 * _ring_rows(steps) * n_planes)
+    by_warps = stream_max_j(n_planes) * (STREAM_WARPS // steps)
+    return 32 * min(by_smem, by_warps) - 3 - 2 * steps
+
+
+def stream_geometry(wd: int, steps: int, n_planes: int = 8,
+                    block_words: int = 0) -> dict:
+    """The streamed geometry of a launch of ``steps`` steps on rows of
+    ``wd`` words with strips of at most ``block_words`` owned words
+    (capped to ``stream_max_owned``; 0 takes the cap): ``strips`` spread
+    evenly over the row, ``owned`` (the widest strip's words), ``words``
+    (its row with the apron, W), ``chunks`` (32-word chunks of a ring
+    row: W + 3 words), ``per_warp`` (chunks a warp takes: the least power
+    of two, at most ``stream_max_j``, under which the T levels fit
+    STREAM_WARPS warps), ``warps`` (a block: T x the warps a level) and
+    ``smem_bytes`` (T rings of ``n_planes`` planes: level 0's STREAM_RING
+    + STREAM_AHEAD rows, the others' STREAM_RING).  Raises where the
+    launch cannot stream."""
+    T = int(steps)
+    most = stream_max_owned(T, n_planes)
+    if most < 1:
+        raise ValueError(f"steps_per_launch={T} with {n_planes} planes "
+                         "cannot stream")
+    bw = max(min(int(block_words) or most, most), 1)
+    ns = -(-wd // bw)
+    owned = -(-wd // ns)
+    w = owned + 2 * T
+    nc = -(-(w + 3) // 32)
+    j = next(j for j in (1, 2, 4, 8) if T * -(-nc // j) <= STREAM_WARPS)
+    return {"strips": ns, "owned": owned, "words": w, "chunks": nc,
+            "per_warp": j, "warps": T * -(-nc // j),
+            "smem_bytes": 128 * _ring_rows(T) * nc * n_planes}
+
+
+def stream_blocks_per_sm(geometry: dict) -> int:
+    """Streamed blocks of ``geometry`` an SM holds at once, as the card
+    counts them with ``STREAM_REGS`` registers a thread: 2,048 threads,
+    65,536 registers and 228 KB of shared memory an SM (1 KB of it
+    reserved a block, 1 KB the static moment counters)."""
+    threads = 32 * geometry["warps"]
+    return max(1, min(2048 // threads, 65536 // (threads * STREAM_REGS),
+                      233_472 // (geometry["smem_bytes"] + 2048)))
+
+
+def _stream_waves(h: int, wd: int, steps: int, n_planes: int, lanes: int,
+                  block_words: int, blocks: int):
+    """The geometry of a streamed launch and the waves its blocks run in
+    all: n + 3T for each segment of n rows, the ``blocks`` shares (0:
+    ``STREAM_SMS`` x ``stream_blocks_per_sm``) cutting the lanes' strip
+    rows into segments at the share ends and at every (lane, strip)."""
+    g = stream_geometry(wd, steps, n_planes, block_words)
+    rows = lanes * g["strips"] * h
+    nb = min(blocks or STREAM_SMS * stream_blocks_per_sm(g), rows)
+    cuts = {rows * k // nb for k in range(nb + 1)} | {
+        h * k for k in range(lanes * g["strips"] + 1)}
+    return g, rows + 3 * int(steps) * (len(cuts) - 1)
+
+
+def stream_thread_steps(h: int, wd: int, steps: int, n_planes: int = 8,
+                        lanes: int = 1, block_words: int = 0,
+                        blocks: int = 0) -> float:
+    """Thread word-steps a streamed launch issues per word-step it owns
+    (the counterpart of a tile's whole-warp rows): every wave takes 32 x
+    warps x chunks-a-warp thread slots (``_stream_waves``), for lanes x H
+    x Wd x T owned word-steps."""
+    g, waves = _stream_waves(h, wd, steps, n_planes, lanes, block_words,
+                             blocks)
+    slots = waves * 32 * g["warps"] * g["per_warp"]
+    return slots / (lanes * h * wd * int(steps))
+
+
+# ``stream_cost``'s constants, fitted to the streamed launch times of fhp2
+# and BML at T = 1, 2, 4 and 8 over 2-10 strips on 4 x 4096 x 1024 words
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): a warp's work in a wave
+# besides its words, in units of a level's word-step on one 32-word chunk,
+# and the warps an SM needs to keep its pipes busy.
+STREAM_WAVE_COST = 0.42
+STREAM_FULL_WARPS = 18
+
+
+def stream_cost(h: int, wd: int, steps: int, n_planes: int = 8,
+                lanes: int = 1, block_words: int = 0) -> float:
+    """Modeled cost of a streamed launch, in word-steps of one 32-word
+    chunk: every wave (``_stream_waves``) computes its T levels' chunks
+    and costs each warp STREAM_WAVE_COST more, over the share of
+    STREAM_FULL_WARPS warps an SM holds (at most 1)."""
+    g, waves = _stream_waves(h, wd, steps, n_planes, lanes, block_words, 0)
+    held = g["warps"] * stream_blocks_per_sm(g) / STREAM_FULL_WARPS
+    return (waves * (g["warps"] * STREAM_WAVE_COST + int(steps) * g["chunks"])
+            / min(1.0, held))
+
+
+@functools.lru_cache(maxsize=256)
+def pick_stream(h: int, wd: int, steps: int = 1, n_planes: int = 8,
+                lanes: int = 1):
+    """``block_words`` of a streamed launch on ``lanes`` lanes of ``(h,
+    wd)`` words at T = ``steps``: over the strip counts, the widest owned
+    words of the strips of least ``stream_cost`` (the fewer strips on a
+    tie); None where the launch cannot stream."""
+    T = int(steps)
+    most = stream_max_owned(T, n_planes)
+    if most < 1:
+        return None
+    best = None
+    for ns in range(-(-wd // most), wd + 1):
+        bw = -(-wd // ns)
+        if -(-wd // bw) != ns:
+            continue
+        cost = stream_cost(h, wd, T, n_planes, lanes, bw)
+        if best is None or cost < best[0]:
+            best = (cost, bw)
+        # Past twice the least cost, narrower strips only add apron.
+        if bw <= 2 * T or cost > 2 * best[0]:
+            break
+    return best[1]
 
 
 # --------------------------------------------------------------------------
@@ -404,28 +569,6 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
             raise ValueError(f"extended mode needs an even hg >= 2 and "
                              f"wdg >= 1 (row parity must wrap), got "
                              f"hg={hg}, wdg={wdg}")
-    if block_rows and block_words:
-        bh, bw = int(block_rows), int(block_words)
-    else:
-        auto = pick_tile(h, wd, T, static_solid, spec.n_planes)
-        bh, bw = int(block_rows) or auto[0], int(block_words) or auto[1]
-    if T > bh:
-        raise ValueError(f"steps_per_launch={T} > block_rows={bh}")
-    if bw < wd and T > bw:
-        raise ValueError(f"steps_per_launch={T} > block_words={bw}")
-    need = smem_bytes(bh, bw, T, static_solid, spec.n_planes)
-    if need > SMEM_BYTES_PER_BLOCK:
-        raise ValueError(f"tile ({bh}, {bw}) at T={T} needs {need} B of "
-                         f"shared memory > {SMEM_BYTES_PER_BLOCK}")
-    rs = tuple(sorted(set(int(s) for s in record_steps)))
-    if any(not 0 <= s < T for s in rs):
-        raise ValueError(f"record_steps {rs} outside [0, {T})")
-    if rs:
-        ms = rulespec.moment_spec(spec, stack_planes=np_)
-        rulespec.require_moment_headroom(
-            ms, (hg * wdg if extended else h * wd) * 32)
-    r0, r1, c0, c1 = moment_bounds or (0, h, 0, wd)
-    bounds = (max(r0, 0), min(r1, h), max(c0, 0), min(c1, wd))
     if rng_planes is not None and rng_in_kernel:
         raise ValueError("rng_planes are read with rng_in_kernel=False only")
     if rng_planes is not None and any(
@@ -436,6 +579,39 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
         chi, acc = rng_planes or rng_words(
             (h, wd), t, p_force=p_force, y0=y0, xw0=xw0, variant=variant,
             device=planes.device)
+    # The row-streaming kernel takes the periodic launches without a solid
+    # operand (csrc/fhp_step.cuh, "Row-streaming wavefront"), where its
+    # rings fit; every other launch runs on tiles.
+    streamed = (not extended and solid is None and chi is None
+                and acc is None and stream_max_owned(T, spec.n_planes) >= 1)
+    if block_rows and block_words:
+        bh, bw = int(block_rows), int(block_words)
+    else:
+        auto = pick_tile(h, wd, T, static_solid, spec.n_planes)
+        bh, bw = int(block_rows) or auto[0], int(block_words) or auto[1]
+    if T > bh:
+        raise ValueError(f"steps_per_launch={T} > block_rows={bh}")
+    if bw < wd and T > bw:
+        raise ValueError(f"steps_per_launch={T} > block_words={bw}")
+    if streamed:
+        # A block owns its share of rows (block_rows, else the card's
+        # resident blocks share them out) of strips of at most block_words.
+        bh = int(block_rows)
+        bw = int(block_words) or pick_stream(h, wd, T, spec.n_planes, b)
+    else:
+        need = smem_bytes(bh, bw, T, static_solid, spec.n_planes)
+        if need > SMEM_BYTES_PER_BLOCK:
+            raise ValueError(f"tile ({bh}, {bw}) at T={T} needs {need} B of "
+                             f"shared memory > {SMEM_BYTES_PER_BLOCK}")
+    rs = tuple(sorted(set(int(s) for s in record_steps)))
+    if any(not 0 <= s < T for s in rs):
+        raise ValueError(f"record_steps {rs} outside [0, {T})")
+    if rs:
+        ms = rulespec.moment_spec(spec, stack_planes=np_)
+        rulespec.require_moment_headroom(
+            ms, (hg * wdg if extended else h * wd) * 32)
+    r0, r1, c0, c1 = moment_bounds or (0, h, 0, wd)
+    bounds = (max(r0, 0), min(r1, h), max(c0, 0), min(c1, wd))
 
     if planes.device.type == "cpu":
         out = fhp_step_ref(planes, t, p_force=p_force, y0=y0, xw0=xw0,
@@ -452,8 +628,9 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
                 else "periodic")
         if planes.device.type == "cuda":
             out = _launch(planes, solid, chi, acc, _RULE_ID[variant],
-                          _MODE_ID[mode], t, y0, xw0, hg or 0, wdg or 0, bh,
-                          bw, T, prng.quantize_p(p_force), rs,
+                          _MODE_ID["streamed" if streamed else mode], t, y0,
+                          xw0, hg or 0, wdg or 0, bh, bw, T,
+                          prng.quantize_p(p_force), rs,
                           ms.n_moments if rs else 0, bounds)
         else:
             # A dry-run's shapes: what the launch would return, no launch.
@@ -475,6 +652,8 @@ def fhp_step_cuda(planes: torch.Tensor, t: int, *, p_force: float = 0.0,
             LAUNCHES[mode] += 1
             if rs:
                 LAUNCHES["moments"] += 1
+            if streamed:
+                LAUNCHES["streamed"] += 1
     else:
         raise ValueError(f"fhp_step_cuda runs on CUDA tensors (and its plain "
                          f"version on CPU tensors; on meta tensors under a "
@@ -489,7 +668,8 @@ def _launch(planes, solid, chi, acc, rule_id, mode_id, t, y0, xw0, hg, wdg,
             bh, bw, T, pq, rs, n_moments, bounds):
     """One kernel launch on CUDA tensors; raises if it is refused."""
     b, _, h, wd = planes.shape
-    if -(-h // bh) > _GRID_YZ_LIMIT or b > _GRID_YZ_LIMIT:
+    if mode_id != _MODE_ID["streamed"] and (-(-h // bh) > _GRID_YZ_LIMIT
+                                            or b > _GRID_YZ_LIMIT):
         raise ValueError(f"grid ({-(-h // bh)} row tiles, {b} lanes) "
                          f"exceeds {_GRID_YZ_LIMIT}")
     with telemetry.span("fhp_step.launch"):

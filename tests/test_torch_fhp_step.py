@@ -154,6 +154,12 @@ def _host_dll(cxx_lib):
     dll.fhp_bernoulli_host.restype = None
     dll.fhp_geometry_host.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     dll.fhp_geometry_host.restype = None
+    dll.fhp_stream_geometry_host.argtypes = ([ctypes.c_int] * 4
+                                             + [ctypes.c_void_p])
+    dll.fhp_stream_geometry_host.restype = None
+    dll.fhp_stream_schedule_host.argtypes = ([ctypes.c_int] * 2
+                                             + [ctypes.c_void_p] * 2)
+    dll.fhp_stream_schedule_host.restype = ctypes.c_int
     return dll
 
 
@@ -508,9 +514,14 @@ def test_argument_checks():
                           block_rows=32, block_words=32)
     with pytest.raises(ValueError, match="record_steps"):
         ops.fhp_step_cuda(w, 0, steps_per_launch=2, record_steps=(2,))
+    # A tile that overflows shared memory is refused where tiles run
+    # (here an extended launch); a periodic launch streams, and there the
+    # same block_rows/block_words name the rows and words a block owns.
     with pytest.raises(ValueError, match="shared memory"):
         ops.fhp_step_cuda(w, 0, steps_per_launch=8, block_rows=96,
-                          block_words=96)
+                          block_words=96, extended=True, hg=16, wdg=8)
+    assert ops.fhp_step_cuda(w, 0, steps_per_launch=8, block_rows=96,
+                             block_words=96).shape == w.shape
 
 
 def test_moment_headroom_refused_before_dispatch():
@@ -595,6 +606,175 @@ def test_widest_tile_row(host_kernel, variant, bw):
     got, gm = _host_step(host_kernel, w, 2, variant, 1, (1, bw), p_force, 3,
                          1, None, (0,))
     assert torch.equal(got, want) and torch.equal(gm, wm)
+
+
+# ---------------------------------------------------------------------------
+# The row-streaming kernel (periodic launches without a solid operand).
+# ---------------------------------------------------------------------------
+
+# Lattices (H, Wd) and (block_rows, block_words) of streamed launches: even
+# and odd H (the general parity path runs at an odd H's wrap), ragged Wd,
+# 16-byte rows and rows that take single words, lattices narrower than one
+# strip, shorter than one share and shorter than T, strips of 2 .. 8 chunks
+# a warp; block_rows 0 shares the strip rows among the emulated persistent
+# blocks, block_words 0 takes pick_stream's strips.
+STREAM_LATTICES = [(22, 13), (5, 40), (3, 4), (40, 72), (9, 150), (7, 260),
+                   (5, 530)]
+STREAM_BLOCKS = [(0, 0), (0, 5), (8, 0), (7, 9), (1, 1000), (3, 120)]
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("variant", codegen.RULES)
+def test_streamed_kernel_body_matches_plain_version(host_kernel, variant, T):
+    # The row-streaming kernel's per-thread functions, wave by wave, against
+    # the plain version: planes and moments recorded at interior steps over
+    # an interior window, from nonzero t0, y0 and xw0.
+    spec = rulespec.get_rule(variant)
+    rng = np.random.default_rng(T * 10 + len(variant))
+    p_force = 0.0 if variant == "bml" else 0.05
+    rs = tuple(range(T - 1, -1, -2))
+    n = 0
+    for (h, wd), (bh, bw) in itertools.product(STREAM_LATTICES,
+                                               STREAM_BLOCKS):
+        bw = bw or ops.pick_stream(h, wd, T, spec.n_planes, 2)
+        y0 = 7 if (h + bw) % 2 else 4
+        w = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31,
+                                          size=(2, spec.n_planes, h, wd),
+                                          dtype=np.int64).astype(np.int32))
+        bounds = (1, h - 1, 1, wd - 1) if min(h, wd) > 2 else (0, h, 0, wd)
+        got, gm = _host_step(host_kernel, w, 11, variant, T, (bh, bw),
+                             p_force, y0, 5, None, rs, mode=3, bounds=bounds)
+        want, wm = fhp_step_ref(w, 11, p_force=p_force, y0=y0, xw0=5,
+                                variant=variant, steps_per_launch=T,
+                                record_steps=rs, moment_bounds=bounds)
+        assert torch.equal(got, want), ((h, wd), (bh, bw))
+        assert torch.equal(gm, wm), ((h, wd), (bh, bw))
+        n += 1
+    assert n == len(STREAM_LATTICES) * len(STREAM_BLOCKS)
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 8, 16])
+def test_stream_ring_schedule_never_aliases(host_kernel, T):
+    # The kernel's wave schedule: every row a level reads in a wave is in
+    # the slot it reads, written in an earlier wave (an input row: landed,
+    # its load waited for at the end of wave q) and not overwritten since;
+    # no slot a level writes, nor one an input row is still being loaded
+    # into, is read in the same wave; level T writes rows T .. n + T - 1,
+    # each once, in order.
+    for n in (1, 2, 5, 3 * T + 4):
+        waves = n + 3 * T
+        written = np.zeros((waves, T + 1, 2), dtype=np.int32)
+        read = np.zeros((waves, T, 3), dtype=np.int32)
+        assert host_kernel.fhp_stream_schedule_host(
+            T, n, written.ctypes.data, read.ctypes.data) == waves
+        ahead = ops.STREAM_AHEAD
+        ring = [dict() for _ in range(T)]     # level -> slot -> row
+        busy = {}                             # input slot -> landing wave
+        for q in range(ahead):                # the segment's first loads
+            busy[q % (ops.STREAM_RING + ahead)] = q
+            ring[0][q % (ops.STREAM_RING + ahead)] = q
+        finished = []
+        for i in range(waves):
+            writes = {L: written[i, L, 1] for L in range(1, T)
+                      if written[i, L, 0] >= 0}
+            for s in range(1, T + 1):
+                q = i - 2 * s
+                if read[i, s - 1, 0] < 0:
+                    assert not s <= q < n + 2 * T - s, (i, s)
+                    continue
+                for k, row in enumerate((q + 1, q, q - 1)):
+                    slot = read[i, s - 1, k]
+                    assert ring[s - 1].get(slot) == row, (T, n, i, s, row)
+                    if s == 1:
+                        assert busy[slot] < i, (T, n, i, slot)
+                    else:
+                        assert writes.get(s - 1) != slot, (T, n, i, s)
+            for L, slot in writes.items():
+                ring[L][slot] = written[i, L, 0]
+            if written[i, T, 0] >= 0:
+                finished.append(written[i, T, 0])
+            q0, slot0 = written[i, 0]
+            if q0 >= 0:
+                assert busy.get(slot0, -1) < i, (T, n, i)
+                ring[0][slot0] = q0
+                busy[slot0] = q0          # waited for at the end of wave q0
+        assert finished == list(range(T, n + T))
+
+
+def test_stream_geometry_matches_kernel(host_kernel):
+    # ops.stream_geometry, stream_max_owned and their shared memory against
+    # the kernel's own (stream_geom in csrc/fhp_step.cuh, built for the
+    # host).
+    out = (ctypes.c_int * 7)()
+    n = 0
+    for wd, T, nps, bw in itertools.product(
+            (1, 4, 13, 72, 125, 1024, 4840), (1, 2, 3, 5, 8, 16, 24, 31),
+            (2, 8), (0, 1, 5, 171, 342, 5000)):
+        host_kernel.fhp_stream_geometry_host(wd, T, nps, bw or 10 ** 6, out)
+        assert out[6] == ops.stream_max_owned(T, nps), (T, nps)
+        if out[6] < 1:
+            with pytest.raises(ValueError, match="cannot stream"):
+                ops.stream_geometry(wd, T, nps, bw)
+            continue
+        g = ops.stream_geometry(wd, T, nps, bw)
+        assert tuple(out[:6]) == (g["strips"], g["words"],
+                                  32 * g["chunks"] * nps, g["per_warp"],
+                                  g["warps"], g["smem_bytes"]), (wd, T, bw)
+        assert g["smem_bytes"] <= ops.STREAM_SMEM_BYTES
+        assert g["warps"] <= ops.STREAM_WARPS
+        assert g["owned"] * g["strips"] >= wd > (g["owned"] - 1) * g["strips"]
+        n += 1
+    assert n > 500
+
+
+def test_pick_stream():
+    # The main path's launch: 6 strips of 171 words at T = 8 (24 warps of
+    # 2 chunks); BML's 2 planes take wider strips and more chunks a warp.
+    assert ops.pick_stream(4096, 1024, 8, 8, 4) == 171
+    assert ops.stream_geometry(1024, 8, 8, 171) == {
+        "strips": 6, "owned": 171, "words": 187, "chunks": 6,
+        "per_warp": 2, "warps": 24, "smem_bytes": 221_184}
+    assert ops.pick_stream(4096, 1024, 8, 2, 4) == 512
+    assert ops.stream_geometry(1024, 8, 2, 512)["per_warp"] == 8
+    assert ops.pick_stream(4096, 1024, 1, 8, 4) == 342
+    # Every pick fits; a T whose rings cannot fit gets none (tiles run).
+    for h, wd, T, n in itertools.product((3, 1024, 4096), (1, 13, 128, 1024),
+                                         (1, 2, 4, 8, 16, 24), (2, 8)):
+        bw = ops.pick_stream(h, wd, T, n, 4)
+        g = ops.stream_geometry(wd, T, n, bw)
+        assert g["owned"] <= bw <= ops.stream_max_owned(T, n)
+        assert ops.stream_cost(h, wd, T, n, 4, bw) <= min(
+            (ops.stream_cost(h, wd, T, n, 4, -(-wd // k)) for k in (1, 2, 3)
+             if -(-wd // k) <= ops.stream_max_owned(T, n)),
+            default=float("inf"))
+    assert ops.pick_stream(4096, 1024, 25, 8) is None
+    assert ops.stream_max_owned(24, 8) >= 1 > ops.stream_max_owned(25, 8)
+    # Thread word-steps per owned word-step: the apron's columns and the
+    # segments' warm-up, far below the tile's 1.567 at 40 x 48, T = 8.
+    assert 1.0 < ops.stream_thread_steps(4096, 1024, 8, 8, 4, 171) < 1.2
+
+
+def test_streamed_launches_counted_apart():
+    # "streamed" counts launches that also count under their mode, as
+    # "moments" does: launches_total sums the modes only.
+    ops.LAUNCHES.clear()
+    try:
+        ops.LAUNCHES.update(periodic=8, streamed=8, moments=8, extended=2)
+        assert ops.launches_total() == 10
+    finally:
+        ops.LAUNCHES.clear()
+
+
+def test_ptxas_report_names_streamed_kernels():
+    text = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN3fhp22fhp_step_stream_kernelI9Rule_fhp2Li2EEEvNS_6ParamsENS_"
+        "10StreamGeomE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 72 registers, 768 bytes smem"])
+    assert build.ptxas_report(text) == [
+        {"kernel": "fhp2 streamed J=2", "registers": 72, "spill_stores": 0,
+         "spill_loads": 0}]
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py    # on the card
 
-The parity sweeps of ``chip_smoke.py`` at a small lattice -- periodic,
-extended-shard and precomputed-RNG mode -- the kernel against its plain
-version on the card, bit for bit; the single-device and sharded entry
+The parity sweeps of ``chip_smoke.py`` at a small lattice -- periodic
+(the row-streaming kernel), extended-shard and precomputed-RNG mode --
+the kernel against its plain version on the card, bit for bit, and the
+streamed launches at the main path's and the serve engine's shapes; the single-device and sharded entry
 points against their plain runs on the CPU; the smoke LMs of every
 decoder-only family through ``ServeEngine`` on the card against the CPU,
 the encoder-decoder's prefill and decode, and one training step's loss
@@ -83,6 +84,30 @@ def test_sharded_path_counts_launches(cuda, overlap, static):
     assert torch.equal(wmom, smom[..., [r for r, n in enumerate(
         rulespec.moment_spec(rulespec.get_rule("fhp3")).names)
         if n != "solid" or not static]])
+
+
+@pytest.mark.parametrize("variant", ["fhp2", "fhp3", "bml"])
+@pytest.mark.parametrize("lattice,T,steps", [((4, 4096, 1024), 8, 16),
+                                             ((4, 1024, 128), 2, 8)],
+                         ids=["main", "serve"])
+def test_streamed_kernel_at_main_and_serve_shapes(cuda, variant, lattice, T,
+                                                  steps):
+    # The main path's launches (4 x 4096 x 1024 words, T = 8, moments every
+    # 8) and the serve engine's (1,024 x 4,096 nodes, T = 2) on the
+    # row-streaming kernel: planes and fused moments equal to the plain
+    # version's, every periodic launch counted as streamed.
+    b, h, wd = lattice
+    p_force = 0.0 if variant == "bml" else 0.03
+    planes = check._random_planes(check.Case(variant, T, b, p_force), h, wd,
+                                  seed=T, device=cuda)
+    kw = dict(p_force=p_force, variant=variant, y0=check.Y0, xw0=check.XW0)
+    ops.LAUNCHES.clear()
+    got, gm = ops.run_cuda(planes, steps, t0=check.T0, steps_per_launch=T,
+                           moments_every=T, **kw)
+    assert (ops.LAUNCHES["streamed"] == ops.LAUNCHES["periodic"]
+            == ops.launches_total() == steps // T)
+    want, wm = check._run_plain(planes, steps, T, **kw)
+    assert torch.equal(got, want) and torch.equal(gm, wm)
 
 
 def test_main_path_counts_launches(cuda):
