@@ -9,15 +9,21 @@ seconds.
 """
 from __future__ import annotations
 
-from repro_torch.models.config import MLACfg, MoECfg, ModelCfg, SSMCfg
+from repro_torch.models.config import (GroupGateMoECfg, MLACfg, MoECfg,
+                                       ModelCfg, SSMCfg, YarnCfg, YarnMLACfg)
 
 FULL = {}
 SMOKE = {}
+# Published models beside the JAX package's twins: ``get_config`` and
+# ``get_smoke`` find them, ``list_archs`` (the twins' list, compared with
+# the JAX package's) does not.
+PUBLISHED = {}
+PUBLISHED_SMOKE = {}
 
 
-def _reg(full: ModelCfg, smoke: ModelCfg):
-    FULL[full.name] = full.validate()
-    SMOKE[full.name] = smoke.validate()
+def _reg(full: ModelCfg, smoke: ModelCfg, registry=(FULL, SMOKE)):
+    registry[0][full.name] = full.validate()
+    registry[1][full.name] = smoke.validate()
 
 
 # --- internlm2-20b: dense GQA [arXiv:2403.17297] ---------------------------
@@ -117,6 +123,40 @@ _reg(
              moe=MoECfg(n_experts=8, top_k=2, n_shared=1, d_ff_expert=64,
                         first_dense=1),
              dtype="float32"),
+)
+
+# --- deepseek-v3: the published DeepSeek-V3 [arXiv:2412.19437; hf
+# deepseek-ai/DeepSeek-V3 config.json] -----------------------------------
+# Two entries: ``deepseek-v3-671b`` above is the JAX package's twin (softmax
+# routing with capacity, plain rotary, eps 1e-5), held field for field to
+# it by the parity tests; ``deepseek-v3`` is the model as published, which
+# the benchmark serves: the sigmoid gate with its correction bias, 4 of 8
+# groups, top-8 scaled by 2.5, no token dropped; YaRN (factor 40 over 4096
+# positions) on the rotary dims and its mscale in the softmax scale; RMSNorm
+# eps 1e-6; an untied head and the MTP module.  The smoke twin keeps the
+# structure: 8 groups, top-k within the 4 kept, 2 experts a share of 32.
+_reg(
+    ModelCfg(name="deepseek-v3", family="moe", n_layers=61, d_model=7168,
+             n_heads=128, n_kv_heads=128, d_ff=18432, vocab=129280,
+             layer_pattern=("e",), rope_theta=1e4, norm_eps=1e-6, mtp=True,
+             mla=YarnMLACfg(q_lora=1536, kv_lora=512, rope_dim=64,
+                            nope_dim=128, v_dim=128,
+                            yarn=YarnCfg(factor=40.0, original_max_pos=4096,
+                                         beta_fast=32.0, beta_slow=1.0,
+                                         mscale=1.0, mscale_all_dim=1.0)),
+             moe=GroupGateMoECfg(n_experts=256, top_k=8, n_shared=1,
+                                 d_ff_expert=2048, first_dense=3, n_groups=8,
+                                 topk_groups=4, route_scale=2.5)),
+    ModelCfg(name="deepseek-v3", family="moe", n_layers=4, d_model=64,
+             n_heads=4, n_kv_heads=4, d_ff=128, vocab=512,
+             layer_pattern=("e",), rope_theta=1e4, norm_eps=1e-6, mtp=True,
+             mla=YarnMLACfg(q_lora=32, kv_lora=16, rope_dim=8, nope_dim=8,
+                            v_dim=8, yarn=YarnCfg()),
+             moe=GroupGateMoECfg(n_experts=64, top_k=8, n_shared=1,
+                                 d_ff_expert=32, first_dense=1, n_groups=8,
+                                 topk_groups=4, route_scale=2.5),
+             dtype="float32"),
+    registry=(PUBLISHED, PUBLISHED_SMOKE),
 )
 
 # --- mamba2-2.7b: SSD, attention-free [arXiv:2405.21060] --------------------

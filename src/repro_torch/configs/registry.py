@@ -1,7 +1,7 @@
 """Config registry: ``--arch <id>`` resolution for every launcher."""
 from __future__ import annotations
 
-from repro_torch.configs.archs import FULL, SMOKE
+from repro_torch.configs.archs import FULL, PUBLISHED, PUBLISHED_SMOKE, SMOKE
 from repro_torch.configs.shapes import SHAPES, applicable_shapes  # noqa: F401
 
 ASSIGNED = [
@@ -16,10 +16,15 @@ def list_archs(assigned_only: bool = False):
 
 
 def get_config(arch: str):
+    """The registered configuration ``arch``: a twin of the JAX package's,
+    or a published model (``archs.PUBLISHED``)."""
+    if arch in PUBLISHED:
+        return PUBLISHED[arch]
     if arch not in FULL:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(FULL)}")
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(FULL) + sorted(PUBLISHED)}")
     return FULL[arch]
 
 
 def get_smoke(arch: str):
-    return SMOKE[arch]
+    return PUBLISHED_SMOKE[arch] if arch in PUBLISHED_SMOKE else SMOKE[arch]

@@ -13,15 +13,22 @@ MLA (DeepSeek's latent attention) trains and prefills in the expanded
 form (the latent lifted to per-head K/V, q/k head dim ``nope + rope`` and
 v dim ``v_dim``, through ``chunked_attention``) and decodes in the
 absorbed form against a cache of the latent ``c`` and the rotated ``kr``.
+With YaRN (``YarnMLACfg``, the published DeepSeek-V3) the rotary dims turn
+by YaRN's frequencies and the softmax scale takes its mscale squared.
+Telemetry: each ``mla_decode`` call is one ``mla.decode`` span.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import telemetry
 from repro_torch.models import common as cm
+from repro_torch.models.config import YarnMLACfg
 from repro_torch.parallel import context
 
 NEG = -1e30
@@ -130,10 +137,11 @@ def _scores(qg, k):
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       cap: float = 0.0, bk: int = 1024,
-                      kv_positions=None, q_positions=None):
+                      kv_positions=None, q_positions=None, scale=None):
     """Attention as an online softmax over KV chunks.
 
-    q: (B, S, H, hd);  k, v: (B, T, KV, hd) with H % KV == 0.
+    q: (B, S, H, hd);  k, v: (B, T, KV, hd) with H % KV == 0; the scores
+    scaled by ``scale`` (None: hd ** -0.5).
     Returns (B, S, H, hd) in q.dtype.
     """
     b, s, h, hd = q.shape
@@ -150,7 +158,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         t = t + pad
     nc = t // bk
     qg = group_heads(q, kvh)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     if q_positions is None:
         q_positions = torch.arange(s, device=dev)
     qpos = q_positions.to(torch.int32)
@@ -190,7 +198,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, s, h, hdv).to(q.dtype)
 
 
-def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0):
+def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0,
+              scale=None):
     """``chunked_attention`` of (B, S, H, hd) queries against (B, T, KV,
     hd) keys and values.  On DTensors under installed rules each device
     runs it on its own rows and heads (``local_map``): the batch on its
@@ -202,7 +211,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0):
     rules = context.current_rules()
     if rules is None or not isinstance(q, DTensor):
         return chunked_attention(q, k, v, causal=causal, window=window,
-                                 cap=cap)
+                                 cap=cap, scale=scale)
     mesh = q.device_mesh
     b, s, h, _ = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -248,7 +257,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0, cap: float = 0.0):
             qpos = torch.arange(sl, device=ql.device) \
                 + mesh.get_local_rank(seq_dim) * sl
         return chunked_attention(ql, kl, vl, causal=causal, window=window,
-                                 cap=cap, q_positions=qpos)
+                                 cap=cap, q_positions=qpos, scale=scale)
 
     qpl, kpl, kgrad = tuple(qpl), tuple(kpl), tuple(kgrad)
     return local_map(local, out_placements=(qpl,),
@@ -377,6 +386,34 @@ def init_mla(init: cm.Init, cfg):
     }
 
 
+def _mla_rope(x, positions, cfg):
+    """Rotary on MLA's rope dims (..., S, heads, rope_dim): YaRN's
+    frequencies where the configuration has them, else plain rotary."""
+    m = cfg.mla
+    if not isinstance(m, YarnMLACfg):
+        return cm.apply_rope(x, positions, 1.0, cfg.rope_theta)
+    return cm.rotate(x, positions, _yarn_inv(m.rope_dim, cfg.rope_theta,
+                                             m.yarn, x.device))
+
+
+@functools.lru_cache(maxsize=8)
+def _yarn_inv(dim: int, theta: float, yarn, device):
+    """YaRN's inverse frequencies as a float32 tensor on ``device``, made
+    once (a copy to the card a call would add two to every MLA layer)."""
+    return torch.tensor(cm.yarn_frequencies(dim, theta, yarn),
+                        dtype=torch.float32, device=device)
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: (nope + rope) ** -0.5, times YaRN's mscale
+    squared where the configuration has YaRN."""
+    m = cfg.mla
+    scale = (m.nope_dim + m.rope_dim) ** -0.5
+    if isinstance(m, YarnMLACfg):
+        scale *= cm.yarn_mscale(m.yarn)
+    return scale
+
+
 def _mla_qkr(p, x, cfg, positions):
     """Queries through the low-rank q path: (q_nope, q_rope rotated)."""
     m = cfg.mla
@@ -384,8 +421,7 @@ def _mla_qkr(p, x, cfg, positions):
                      p["qn"], cfg.norm_eps)
     q = torch.einsum("bsq,qhk->bshk", cq, p["wuq"].to(x.dtype))
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
-    q_rope = cm.apply_rope(q_rope, positions, 1.0, cfg.rope_theta)
-    return q_nope, q_rope
+    return q_nope, _mla_rope(q_rope, positions, cfg)
 
 
 def _mla_latent(p, x, cfg, positions):
@@ -394,14 +430,13 @@ def _mla_latent(p, x, cfg, positions):
     c = cm.rms_norm(torch.einsum("bsd,dc->bsc", x, p["wdkv"].to(x.dtype)),
                     p["kvn"], cfg.norm_eps)
     kr = torch.einsum("bsd,dr->bsr", x, p["wkr"].to(x.dtype))
-    kr = cm.apply_rope(kr[:, :, None, :], positions, 1.0,
-                       cfg.rope_theta)[:, :, 0, :]
+    kr = _mla_rope(kr[:, :, None, :], positions, cfg)[:, :, 0, :]
     return c, kr
 
 
 def mla_block(p, x, cfg, *, positions):
     """Training / prefill MLA: the latent expanded to per-head K/V, causal
-    chunked attention (scale ``(nope + rope) ** -0.5``, no softcap)."""
+    chunked attention (scale ``mla_scale``, no softcap)."""
     m = cfg.mla
     q_nope, q_rope = _mla_qkr(p, x, cfg, positions)
     c, kr = _mla_latent(p, x, cfg, positions)
@@ -411,7 +446,7 @@ def mla_block(p, x, cfg, *, positions):
     k_rope = kr[:, :, None, :].expand(kr.shape[:2] + (h, m.rope_dim))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope], dim=-1)
-    o = attention(q, k, v, causal=True)
+    o = attention(q, k, v, causal=True, scale=mla_scale(cfg))
     return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype))
 
 
@@ -420,7 +455,11 @@ def mla_decode(p, x, cfg, cache, pos):
     ``pos`` is a scalar or per-row (B,) vector; each row's latent and
     rotated key are written at its own position, in place (the returned
     cache is the one passed in)."""
-    m = cfg.mla
+    with telemetry.span("mla.decode"):
+        return _mla_decode(p, x, cfg, cache, pos)
+
+
+def _mla_decode(p, x, cfg, cache, pos):
     b = x.shape[0]
     pv = pos_vec(pos, b, x.device)
     q_nope, q_rope = _mla_qkr(p, x, cfg, pv[:, None])
@@ -436,7 +475,7 @@ def mla_decode(p, x, cfg, cache, pos):
                        c.to(x.dtype).to(f32))
           + torch.einsum("bshr,btr->bsht", q_rope.to(f32),
                          kr.to(x.dtype).to(f32)))
-    sc = sc * ((m.nope_dim + m.rope_dim) ** -0.5)
+    sc = sc * mla_scale(cfg)
     mask = torch.arange(c.shape[1], device=x.device)[None, :] <= pv[:, None]
     sc = torch.where(mask[:, None, None, :], sc,
                      torch.full((), NEG, dtype=sc.dtype, device=x.device))

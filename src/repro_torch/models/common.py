@@ -192,6 +192,46 @@ def apply_rope(x, positions, frac=1.0, theta=10000.0):
     return torch.cat([o1.to(x.dtype), o2.to(x.dtype), xp], dim=-1)
 
 
+def yarn_frequencies(dim: int, theta: float, yarn) -> np.ndarray:
+    """YaRN's inverse frequencies (dim // 2,) in float64, as DeepSeek-V3's
+    ``precompute_freqs_cis``: pair i keeps theta ** (-2 i / dim) below the
+    correction range (fast rotations, ``beta_fast`` turns or more over the
+    original context), takes it over ``factor`` above it (``beta_slow``
+    turns or fewer), and blends the two linearly in between."""
+    inv = theta ** (-np.arange(0, dim, 2, dtype=np.float64) / dim)
+
+    def corr(turns):
+        return dim * np.log(yarn.original_max_pos / (turns * 2 * np.pi)) \
+            / (2 * np.log(theta))
+
+    low = max(int(np.floor(corr(yarn.beta_fast))), 0)
+    high = min(int(np.ceil(corr(yarn.beta_slow))), dim - 1)
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low)
+                   / ((high - low) or 0.001), 0.0, 1.0)
+    return inv / yarn.factor * ramp + inv * (1.0 - ramp)
+
+
+def yarn_mscale(yarn) -> float:
+    """The factor YaRN puts on the softmax scale: mscale squared,
+    ``0.1 * mscale_all_dim * ln(factor) + 1`` (DeepSeek-V3's MLA)."""
+    if yarn.factor <= 1:
+        return 1.0
+    m = 0.1 * yarn.mscale_all_dim * float(np.log(yarn.factor)) + 1.0
+    return m * m
+
+
+def rotate(x, positions, inv):
+    """``apply_rope``'s half-split rotation of all of ``x``'s last dim by
+    given inverse frequencies ``inv`` (hd // 2,) float32."""
+    ang = positions[..., None].to(torch.float32) * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    h = x.shape[-1] // 2
+    x1, x2 = x[..., :h], x[..., h:]
+    return torch.cat([(x1 * cos - x2 * sin).to(x.dtype),
+                      (x2 * cos + x1 * sin).to(x.dtype)], dim=-1)
+
+
 def einsum(eq: str, x, w, x_axes, w_axes):
     """``torch.einsum(eq, x, w)``; on DTensors under installed sharding
     rules a ``parallel.context.sharded_einsum``, each operand placed by

@@ -29,12 +29,54 @@ class MoECfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupGateMoECfg(MoECfg):
+    """DeepSeek-V3's published expert layer (arXiv:2412.19437 §2.1.2; its
+    ``inference/model.py::Gate``): sigmoid scores over every expert, the
+    choice biased by a per-expert correction, ``topk_groups`` of
+    ``n_groups`` groups kept by the sum of each group's top 2, the top k
+    experts of the kept groups, their unbiased scores normalised to sum 1
+    times ``route_scale``; no token dropped.  The layer holds the experts
+    ``[first_expert, first_expert + held)`` of the ``n_experts`` its
+    router scores (``held`` 0: all of them), as one chip of an
+    expert-parallel deployment does.  A subclass, so the twins of the JAX
+    package's configurations keep exactly its fields."""
+    n_groups: int = 1
+    topk_groups: int = 1
+    route_scale: float = 1.0
+    held: int = 0
+    first_expert: int = 0
+
+    @property
+    def n_held(self) -> int:
+        return self.held or self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnCfg:
+    """YaRN's rotary scaling (arXiv:2309.00071) as DeepSeek-V3 sets it
+    (``rope_scaling`` of its config.json)."""
+    factor: float = 40.0
+    original_max_pos: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class MLACfg:
     q_lora: int = 1536
     kv_lora: int = 512
     rope_dim: int = 64
     nope_dim: int = 128
     v_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnMLACfg(MLACfg):
+    """MLA whose rotary dims take YaRN's frequencies and whose softmax
+    scale takes YaRN's mscale squared (a subclass, as above)."""
+    yarn: YarnCfg = YarnCfg()
 
 
 @dataclasses.dataclass(frozen=True)

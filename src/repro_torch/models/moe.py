@@ -14,6 +14,17 @@ and experts (``local_map``): each data shard routes and dispatches its own
 group to the experts of its model shard, and the combined output is a
 pending sum over the model axis.  The Switch load-balance aux loss, which
 is returned beside the output, stays the global mean over every token.
+
+A ``GroupGateMoECfg`` (DeepSeek-V3 as published) takes another path,
+``share_block``: its gate (``group_gate``: sigmoid scores, the correction
+bias, group-limited top-k, scaled normalised weights) over every expert,
+then, with no capacity and no token dropped, every token through the
+held experts ``[first_expert, first_expert + held)`` as batched
+products, each weighted by the gate (0 where not picked), and the shared
+expert once.  Nothing in it reads the device from the host.  Telemetry:
+the gate is one ``moe.route`` span, the rest one ``moe.experts`` span;
+the counter ``moe.routed_pairs`` counts the (token, held expert) pairs
+computed.
 """
 from __future__ import annotations
 
@@ -23,21 +34,30 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import telemetry
 from repro_torch.models import common as cm
+from repro_torch.models.config import GroupGateMoECfg
 from repro_torch.models.mlp import init_mlp, mlp_block
 from repro_torch.parallel import context
 
 
 def init_moe(init: cm.Init, cfg):
+    """The router over every expert and the stacks of the experts held
+    (every expert but in an expert share); the published gate's
+    correction bias (``bias``, one a scored expert) beside the router."""
     e, d = cfg.moe, cfg.d_model
     f = e.d_ff_expert
+    share = isinstance(e, GroupGateMoECfg)
+    n = e.n_held if share else e.n_experts
     p = {
         "router": init.normal((d, e.n_experts), ("embed", "experts"),
                               scale=0.006),
-        "wg": init.normal((e.n_experts, d, f), ("experts", "embed", "d_ff")),
-        "wu": init.normal((e.n_experts, d, f), ("experts", "embed", "d_ff")),
-        "wd": init.normal((e.n_experts, f, d), ("experts", "d_ff", "embed")),
+        "wg": init.normal((n, d, f), ("experts", "embed", "d_ff")),
+        "wu": init.normal((n, d, f), ("experts", "embed", "d_ff")),
+        "wd": init.normal((n, f, d), ("experts", "d_ff", "embed")),
     }
+    if share:
+        p["bias"] = init.zeros((e.n_experts,), (None,))
     if e.n_shared:
         p["shared"] = init_mlp(init, d, f * e.n_shared)
     return p
@@ -151,9 +171,79 @@ def _dispatch(p, xt, gate, expert, cfg, ng: int, cg: int, e0: int = 0):
     return out[:, :tg].reshape(t, d)
 
 
-def moe_block(p, x, cfg):
-    """x: (B, S, D) -> (out, aux_loss)."""
+def group_gate(p, xt, cfg):
+    """DeepSeek-V3's gate over ``xt`` (T, D), in float32: ``(weight (T,
+    k), expert (T, k))``.  Scores ``sigmoid(x W_r)``; the choice by the
+    scores plus ``bias``: each of ``n_groups`` groups scored by the sum of
+    its top 2, the top ``topk_groups`` groups kept, the top k experts of
+    the kept groups (ties, of groups and of experts, to the lower index);
+    the weights the chosen unbiased scores normalised to sum 1, times
+    ``route_scale``."""
     e = cfg.moe
+    t = xt.shape[0]
+    scores = torch.sigmoid(xt.to(torch.float32)
+                           @ p["router"].to(torch.float32))
+    biased = scores + p["bias"].to(torch.float32)
+    grouped = biased.view(t, e.n_groups, -1)
+    gscore = grouped.topk(2, dim=-1).values.sum(-1)
+    kept = torch.sort(gscore, dim=-1, descending=True,
+                      stable=True).indices[:, :e.topk_groups]
+    mask = torch.ones_like(gscore, dtype=torch.bool).scatter_(1, kept, False)
+    biased = grouped.masked_fill(mask[..., None], float("-inf")).view(t, -1)
+    expert = torch.sort(biased, dim=-1, descending=True,
+                        stable=True).indices[:, :e.top_k]
+    weight = scores.gather(1, expert)
+    weight = weight / weight.sum(-1, keepdim=True) * e.route_scale
+    return weight, expert
+
+
+def share_experts(p, xt, weight, expert, cfg):
+    """The held experts' part of the layer over ``xt`` (T, D), (T, D) in
+    its dtype: every (token, held expert) pair the gate picked, through
+    the expert's SwiGLU, times its weight, summed over a token's pairs.
+
+    Every held expert runs over every token, one batched product a matrix
+    (``xt`` broadcast to ``(n_held, T, D)``), and a pair the gate did not
+    pick weighs 0: a token picks each expert at most once, so this is the
+    dropless layout of static size, and nothing about the pairs is read on
+    the host.  The weights scale the SwiGLU's output, so the down
+    projection of every held expert and the sum over them are one product
+    over ``n_held x d_ff``.  ``moe.routed_pairs`` counts the T x n_held
+    pairs computed."""
+    n_held, d, f = p["wg"].shape
+    t = xt.shape[0]
+    telemetry.count("moe.routed_pairs", t * n_held)
+    held = torch.arange(cfg.moe.first_expert, cfg.moe.first_expert + n_held,
+                        device=xt.device)
+    # (n_held, T): each held expert's weight for each token, 0 unpicked.
+    w = ((expert[None] == held[:, None, None]) * weight[None]).sum(-1)
+    xs = xt.expand(n_held, t, d)
+    h = cm.silu(torch.bmm(xs, p["wg"])) * torch.bmm(xs, p["wu"])
+    h = (h * w[..., None]).to(xt.dtype).transpose(0, 1).reshape(t, -1)
+    return h @ p["wd"].reshape(n_held * f, d)
+
+
+def share_block(p, x, cfg):
+    """The published expert layer of ``GroupGateMoECfg`` over x (B, S, D):
+    the held experts' part of every token's routed experts plus the
+    shared expert, in x's dtype."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    with telemetry.span("moe.route"):
+        weight, expert = group_gate(p, xt, cfg)
+    with telemetry.span("moe.experts"):
+        out = share_experts(p, xt, weight, expert, cfg)
+        if "shared" in p:
+            out = out + mlp_block(p["shared"], xt[None])[0]
+    return out.reshape(b, s, d)
+
+
+def moe_block(p, x, cfg):
+    """x: (B, S, D) -> (out, aux_loss); the published gate's layer
+    (``share_block``) has no aux loss (0)."""
+    e = cfg.moe
+    if isinstance(e, GroupGateMoECfg):
+        return share_block(p, x, cfg), x.new_zeros((), dtype=torch.float32)
     b, s, d = x.shape
     t = b * s
     ng = _dispatch_groups(t)

@@ -5,9 +5,10 @@ The engine keeps ``batch_size`` decode slots.  Incoming requests are
 prefilled one at a time and their caches written into a free slot; every
 ``step()`` advances all live slots by one token with one batched
 ``decode_step`` at per-row positions.  Finished requests (EOS or
-max-new-tokens) free their slot for the queue.  Token selection (greedy,
-or temperature / top-k sampling from a seeded numpy generator) runs on
-the host, as in the reference.
+max-new-tokens) free their slot for the queue.  Greedy selection takes
+the argmax on the device, so one id a row comes to the host (the first
+of equal maxima, as ``np.argmax``); temperature / top-k sampling from a
+seeded numpy generator runs on the host, as in the reference.
 
 ``device=None`` serves on the card and raises when there is none; pass
 ``device="cpu"`` to serve on the CPU.
@@ -116,7 +117,8 @@ class ServeEngine:
                                               max_len=self.max_len,
                                               cache_dtype=self.cache_dtype)
                 self._write_slot_cache(i, rcache)
-                tok = self._select(self._host(last_logits[0]))
+                tok = (int(last_logits[0].argmax()) if self.greedy else
+                       self._select(self._host(last_logits[0])))
                 req.out.append(tok)
                 self.slots[i] = req
                 self.pos[i] = len(req.prompt)
@@ -134,9 +136,12 @@ class ServeEngine:
         pos = torch.as_tensor(self.pos, dtype=torch.int64, device=self.device)
         logits, self.cache = decode_step(self.params, self.cfg, self.cache,
                                          toks, pos)
-        lg = self._host(logits)
+        if self.greedy:
+            ids = logits.argmax(-1).cpu().numpy()
+        else:
+            lg = self._host(logits)
         for i in live:
-            tok = self._select(lg[i])
+            tok = int(ids[i]) if self.greedy else self._select(lg[i])
             req = self.slots[i]
             req.out.append(tok)
             self.last_tok[i] = tok
