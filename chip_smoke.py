@@ -123,8 +123,9 @@ no result line):
    phase and at the end, the profile equal, R^2 > 0.9 and concave; prints
    R^2, the curvature and both runs' ms;
 10. the LM serve path (``serve.ServeEngine``), which reaches no custom
-    kernel (nor do phases 11-13) (plain PyTorch, as the reference's attention, experts and SSD
-    are plain jnp):
+    kernel (nor do phases 12-13; phase 11's MLA decode in bf16 does)
+    (plain PyTorch, as the reference's attention, experts and SSD are
+    plain jnp):
     a. the smoke configs of repro-100m, gemma2-27b, deepseek-v3-671b,
        llama4-scout-17b-a16e, mamba2-2.7b and zamba2-2.7b in float32,
        built from the same seeded numpy parameters on the card and on the
@@ -159,7 +160,16 @@ no result line):
     teacher-forced sequence right-padded to the SSD chunk), then in bf16.
     Each bf16 run prints a profile of three decode steps; a step's byte
     bound counts every parameter it reads (every expert, not the MTP
-    leaves).
+    leaves).  The bf16 deepseek run decodes through MLA's attention-core
+    kernel (``kernels/mla_decode``; its split and merge launches counted
+    apart).  Then that kernel alone at DeepSeek-V3's widths (128 heads,
+    512 + 64, the YaRN scale), against the plain core within 2^-6
+    (relative L2 of each context vector) at that run's decode shapes
+    (``LM_SLOTS`` rows over ``LM_MAX_LEN`` positions, split and merged)
+    and over 256 rows of a 2,560-long cache at the chat mix's depths (one
+    split), where it prints its ms (CUDA events) beside its bound (live
+    latent bytes at 3.35e12 B/s against the absorbed FLOPs at 989.4e12)
+    and the plain core's ms.
 12. the encoder-decoder (seamless-m4t-medium at its published width and
     depth: 12 + 12 layers, d_model 1024, vocab 256206) through
     ``models.lm.prefill`` and ``decode_step`` (``ServeEngine`` refuses
@@ -1673,6 +1683,54 @@ def _lm_families(dev, card):
     return out
 
 
+def _mla_decode_core(dev, card, launches):
+    """Phase 11's kernel row: MLA decode's attention core at DeepSeek-V3's
+    widths, the kernel against the plain core
+    (``kernels/mla_decode/check.py``), at the bf16 deepseek run's own
+    decode shapes (``LM_SLOTS`` rows over ``LM_MAX_LEN`` positions, split
+    and merged) and over 256 rows of 2,560 positions at the chat mix's
+    depths (one split), which it times.  ``launches``: the kernel's
+    launches by kind in the bf16 deepseek run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mla_decode import check as mcheck
+    from repro_torch.kernels.mla_decode import ops as mops
+    from repro_torch.models import attention
+    cfg = get_config("deepseek-v3")
+    m = cfg.mla
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {}
+    for rows, t in ((LM_SLOTS, LM_MAX_LEN), (256, 2560)):
+        splits, chunk = mops.plan(rows, cfg.n_heads, t, n_sm)
+        pos = (mcheck.boundary_positions(t, chunk)[:rows] if splits > 1
+               else mcheck.chat_positions(rows, t, seed=7))
+        k = mcheck.case(rows, cfg.n_heads, m.kv_lora, m.rope_dim, t, pos,
+                        scale=attention.mla_scale(cfg), device=dev, seed=7)
+        err = mcheck.compare(k)
+        if not (err["finite"] and err["kernel_vs_plain_max"] <= 2 ** -6):
+            raise AssertionError(f"mla_decode kernel against plain at {rows} "
+                                 f"rows x {t}, {splits} splits: {err}")
+        errs[(rows, t, splits)] = err["kernel_vs_plain_max"]
+    row = mcheck.time_core(k)
+    checked = "; ".join(f"{r} rows x {t} in {s} split(s) {e:.2e}"
+                        for (r, t, s), e in errs.items())
+    print(f"[mla] {card} | attention core, 256 rows x 128 heads, 512 + 64, "
+          f"{int((k.pv + 1).sum())} live keys: kernel {row['kernel_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{100 * row['share']:.2f}% of it; plain {row['plain_ms']:.4f} ms; "
+          f"max relative L2 against plain: {checked}; the bf16 deepseek "
+          f"run launched {launches['split']} split and {launches['merge']} "
+          f"merge kernels")
+    return {"name": "mla_decode attention core", "route": "cuda",
+            "source": "src/repro_torch/kernels/mla_decode/csrc/mla_decode.cu",
+            "replaces": None, "mode": "split-KV",
+            "launches": launches["split"],
+            "merge_launches": launches["merge"],
+            "max_rel_l2": max(errs.values()),
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "checked_vs_plain": True, "card": card}
+
+
 # -- phases 12 and 13 ---------------------------------------------------------
 
 def _encdec_decode_bytes(cfg, dtype, batch, max_len, t_enc) -> int:
@@ -2616,7 +2674,10 @@ def main() -> int:
     _lm_smoke_check(dev, card)
     _lm_full_width(dev, card)
     # -- 11. the experts/MLA and SSM/hybrid families ------------------------
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    mla_ops.LAUNCHES.clear()
     _lm_families(dev, card)
+    mla_entry = _mla_decode_core(dev, card, mla_ops.LAUNCHES.copy())
     # -- 12-13. this slice: the encoder-decoder, then training --------------
     _lm_encdec(dev, card)
     train_full, _ = _lm_train(dev, card)
@@ -2643,7 +2704,7 @@ def main() -> int:
         _entry("fhp_step K6 static solid, periodic", "static_solid",
                twin_modes["static_solid"],
                results[f"T={T_MAIN} static-solid"], card),
-    ] + sharded
+    ] + sharded + [mla_entry]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

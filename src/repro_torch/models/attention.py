@@ -15,7 +15,12 @@ v dim ``v_dim``, through ``chunked_attention``) and decodes in the
 absorbed form against a cache of the latent ``c`` and the rotated ``kr``.
 With YaRN (``YarnMLACfg``, the published DeepSeek-V3) the rotary dims turn
 by YaRN's frequencies and the softmax scale takes its mscale squared.
-Telemetry: each ``mla_decode`` call is one ``mla.decode`` span.
+Its attention core (``mla_attend``: scores, softmax, context) runs as one
+split-KV kernel (``kernels/mla_decode``) on plain CUDA tensors in bf16 or
+fp16, over each row's live latent only; CPU tensors, DTensors and float32
+compute keep the plain core.
+Telemetry: each ``mla_decode`` call is one ``mla.decode`` span; on the
+kernel path the counter ``mla.decode_kernel_rows`` adds its rows.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch import telemetry
+from repro_torch.kernels.mla_decode import ops as mla_kernel
 from repro_torch.models import common as cm
 from repro_torch.models.config import YarnMLACfg
 from repro_torch.parallel import context
@@ -467,22 +473,42 @@ def _mla_decode(p, x, cfg, cache, pos):
     c, kr = cache["c"], cache["kr"]
     write_rows(c, pv, c1[:, 0])
     write_rows(kr, pv, kr1[:, 0])
-    # Absorb W_uk into q: scores on the latent side, fp32 from
-    # compute-dtype operands.
+    # Absorb W_uk into q: scores on the latent side.
     q_lat = torch.einsum("bshk,chk->bshc", q_nope, p["wuk"].to(x.dtype))
-    f32 = torch.float32
-    sc = (torch.einsum("bshc,btc->bsht", q_lat.to(f32),
-                       c.to(x.dtype).to(f32))
-          + torch.einsum("bshr,btr->bsht", q_rope.to(f32),
-                         kr.to(x.dtype).to(f32)))
-    sc = sc * mla_scale(cfg)
-    mask = torch.arange(c.shape[1], device=x.device)[None, :] <= pv[:, None]
-    sc = torch.where(mask[:, None, None, :], sc,
-                     torch.full((), NEG, dtype=sc.dtype, device=x.device))
-    pr = torch.softmax(sc, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bsht,btc->bshc", pr, c.to(x.dtype))
+    if _on_kernel(q_lat, c, kr):
+        telemetry.count("mla.decode_kernel_rows", b)
+        ctx = mla_kernel.attend(q_lat[:, 0], q_rope[:, 0], c, kr, pv,
+                                mla_scale(cfg))[:, None]
+    else:
+        ctx = mla_attend(q_lat, q_rope, c, kr, pv, mla_scale(cfg))
     o = torch.einsum("bshc,chv->bshv", ctx, p["wuv"].to(x.dtype))
     return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype)), cache
+
+
+def _on_kernel(q_lat, c, kr) -> bool:
+    """The kernel path: plain CUDA tensors in bf16 or fp16.  CPU tensors,
+    DTensors and float32 compute (which the tensor cores would round to
+    TF32) take ``mla_attend``."""
+    return (q_lat.is_cuda and q_lat.dtype in mla_kernel.TYPES
+            and not any(isinstance(t, DTensor) for t in (q_lat, c, kr)))
+
+
+def mla_attend(q_lat, q_rope, c, kr, pv, scale: float):
+    """The absorbed decode's attention core, plain: q_lat (B,1,H,kv_lora)
+    and q_rope (B,1,H,rope) against each row's live latent ``c`` and
+    rotated keys ``kr`` (keys 0..pv[b]), scores in fp32 from the queries'
+    type, probabilities rounded to it; the context (B,1,H,kv_lora) in the
+    queries' type.  ``kernels/mla_decode`` computes it on the card."""
+    dt, f32 = q_lat.dtype, torch.float32
+    sc = (torch.einsum("bshc,btc->bsht", q_lat.to(f32), c.to(dt).to(f32))
+          + torch.einsum("bshr,btr->bsht", q_rope.to(f32),
+                         kr.to(dt).to(f32)))
+    sc = sc * scale
+    mask = torch.arange(c.shape[1], device=c.device)[None, :] <= pv[:, None]
+    sc = torch.where(mask[:, None, None, :], sc,
+                     torch.full((), NEG, dtype=sc.dtype, device=c.device))
+    pr = torch.softmax(sc, dim=-1).to(dt)
+    return torch.einsum("bsht,btc->bshc", pr, c.to(dt))
 
 
 def init_mla_cache(dtype, cfg, batch: int, max_len: int, device=None):

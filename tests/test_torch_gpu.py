@@ -418,3 +418,122 @@ def test_fhp_recorder_on_the_card_matches_the_steppers_counts(cuda):
     assert cb["operand_bytes"] / (4 * 2) == analysis.sharded_fhp_traffic(
         hl, wdl, depth=4, T=4, block_rows=4)["ici_bytes_per_exchange"]
     assert torch.equal(got, want)
+
+
+# -- MLA decode's attention core (kernels/mla_decode) -----------------------
+
+def _mla_within(r):
+    # bf16: the kernel and the plain core each round every probability to
+    # bf16 (2^-9 relative) and the context once (2^-9); the kernel rounds
+    # probabilities before normalising, the plain core after, and the two
+    # sum in other orders.  So a (row, head) context vector of the kernel
+    # lies within 2^-6 (relative L2) of the plain core's, and the kernel is
+    # no farther from the float64 value of the same operands than the
+    # plain core, give or take a quarter of its error and 2^-10.
+    assert r["finite"]
+    assert r["kernel_vs_plain_max"] <= 2 ** -6, r
+    assert r["kernel_err"] <= 1.25 * r["plain_err"] + 2 ** -10, r
+
+
+def _mla_case(cuda, arch, rows, t, seed, smoke=False, **kw):
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels.mla_decode import check as mcheck
+    from repro_torch.kernels.mla_decode import ops as mops
+    from repro_torch.models import attention
+    cfg = (get_smoke if smoke else get_config)(arch)
+    m = cfg.mla
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, chunk = mops.plan(rows, cfg.n_heads, t, n_sm)
+    pos = mcheck.boundary_positions(t, chunk)[:rows]
+    pos += mcheck.chat_positions(rows - len(pos), t, seed)
+    return splits, mcheck.case(rows, cfg.n_heads, m.kv_lora, m.rope_dim, t,
+                               pos, scale=attention.mla_scale(cfg),
+                               device=cuda, seed=seed, **kw)
+
+
+@pytest.mark.parametrize("rows", [256, 16, 4],
+                         ids=["256 rows", "16 rows", "4 rows"])
+def test_mla_kernel_at_the_cells_widths(cuda, rows):
+    # DeepSeek-V3's published widths (128 heads, 512 + 64, the YaRN
+    # scale) over a 2,560-long cache at plan's split (one split at 256
+    # rows, several at 16 and 4): positions 0, each split edge - 2, - 1,
+    # + 0, + 1, 2,559 and the rest drawn as the chat mix leaves them.
+    from repro_torch.kernels.mla_decode import check as mcheck
+    from repro_torch.kernels.mla_decode import ops as mops
+    splits, k = _mla_case(cuda, "deepseek-v3", rows, 2560, seed=11)
+    assert (splits == 1) == (rows == 256)
+    mops.LAUNCHES.clear()
+    _mla_within(mcheck.compare(k))
+    assert mops.LAUNCHES["split"] == 1
+    assert mops.LAUNCHES["merge"] == int(splits > 1)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3", "deepseek-v3-671b"])
+@pytest.mark.parametrize("t", [96, 1024])
+def test_mla_kernel_at_smoke_widths(cuda, arch, t):
+    # The smoke twins' 4-8 heads, 16-32 + 8-16 widths, padded by masking;
+    # 1,024 positions over 6 rows take several splits.
+    from repro_torch.kernels.mla_decode import check as mcheck
+    from repro_torch.kernels.mla_decode import ops as mops
+    splits, k = _mla_case(cuda, arch, 6, t, seed=5, smoke=True)
+    assert (splits > 1) == (t == 1024)
+    mops.LAUNCHES.clear()
+    _mla_within(mcheck.compare(k))
+    assert mops.LAUNCHES["merge"] == int(splits > 1)
+
+
+@pytest.mark.parametrize("dtype,cache_dtype,strided", [
+    (torch.bfloat16, torch.bfloat16, True),
+    (torch.bfloat16, torch.float32, False),
+    (torch.float16, torch.float16, False),
+    (torch.float16, torch.bfloat16, False)], ids=str)
+def test_mla_kernel_takes_strided_and_other_caches(cuda, dtype, cache_dtype,
+                                                   strided):
+    # c and kr as views of one buffer; a float32 or bf16 cache rounded to
+    # the queries' type as it loads (as the plain core's c.to(x.dtype));
+    # fp16 throughout.
+    from repro_torch.kernels.mla_decode import check as mcheck
+    _, k = _mla_case(cuda, "deepseek-v3", 8, 640, seed=3, dtype=dtype,
+                     cache_dtype=cache_dtype, strided=strided)
+    _mla_within(mcheck.compare(k))
+
+
+def test_mla_decode_in_bf16_takes_the_kernel_on_card(cuda, monkeypatch):
+    # A whole bf16 mla_decode at the smoke twin's widths through the kernel
+    # (launches and the rows counter), against the same call with the
+    # plain core; the cache written in place either way.
+    from repro_torch import telemetry
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.mla_decode import ops as mops
+    from repro_torch.models import attention, common as cm
+    cfg = get_smoke("deepseek-v3")
+    p = {k: v.to(torch.bfloat16) for k, v in attention.init_mla(
+        cm.Init(0, device=cuda), cfg).items()}
+    m, rows, t = cfg.mla, 5, 48
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((rows, 1, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    cache0 = {"c": torch.randn((rows, t, m.kv_lora), generator=g,
+                               device=cuda).to(torch.bfloat16),
+              "kr": torch.randn((rows, t, m.rope_dim), generator=g,
+                                device=cuda).to(torch.bfloat16)}
+    pos = torch.tensor([0, 7, 20, 46, 47], device=cuda)
+    tel = telemetry.default()
+    was = tel.enabled
+    tel.enabled = True
+    before = tel.summary()["counters"].get("mla.decode_kernel_rows", 0)
+    mops.LAUNCHES.clear()
+    try:
+        kc = {k: v.clone() for k, v in cache0.items()}
+        got, _ = attention.mla_decode(p, x, cfg, kc, pos)
+        after = tel.summary()["counters"].get("mla.decode_kernel_rows", 0)
+    finally:
+        tel.enabled = was
+    assert mops.LAUNCHES["split"] == 1 and after - before == rows
+    monkeypatch.setattr(attention, "_on_kernel", lambda *a: False)
+    pc = {k: v.clone() for k, v in cache0.items()}
+    want, _ = attention.mla_decode(p, x, cfg, pc, pos)
+    assert mops.LAUNCHES["split"] == 1
+    assert all(torch.equal(kc[k], pc[k]) for k in kc)
+    rel = (got.float() - want.float()).norm() / want.float().norm()
+    assert float(rel) <= 2 ** -6

@@ -171,6 +171,62 @@ def test_mla_decode_matches_reference():
     L.leaves_close(gc, wc)
 
 
+def test_mla_attend_by_depth_matches_reference():
+    # The factored core alone, on rows at depths 0, mid and T - 1 of a
+    # cache whose later positions hold noise, then W_uv and wo: the
+    # reference's whole decode.  A row at depth 0 sees only its own key.
+    cfg, p, rng = _mla_case(3)
+    m, t = cfg.mla, 24
+    cache = {"c": rng.standard_normal((3, t, m.kv_lora)).astype(np.float32),
+             "kr": rng.standard_normal((3, t, m.rope_dim)).astype(
+                 np.float32)}
+    x = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32)
+    pos = np.array([0, 11, t - 1], np.int64)
+    jp, tp = _both(p)
+    jc, tc = _both(cache)
+    want, _ = jattn.mla_decode(jp, jnp.asarray(x), cfg, jc, jnp.asarray(pos))
+    tx, pv = torch.from_numpy(x), torch.from_numpy(pos)
+    q_nope, q_rope = attn._mla_qkr(tp, tx, cfg, pv[:, None])
+    c1, kr1 = attn._mla_latent(tp, tx, cfg, pv[:, None])
+    attn.write_rows(tc["c"], pv, c1[:, 0])
+    attn.write_rows(tc["kr"], pv, kr1[:, 0])
+    q_lat = torch.einsum("bshk,chk->bshc", q_nope, tp["wuk"])
+    ctx = attn.mla_attend(q_lat, q_rope, tc["c"], tc["kr"], pv,
+                          attn.mla_scale(cfg))
+    assert ctx.shape == (3, 1, cfg.n_heads, m.kv_lora)
+    close(ctx[0, 0], c1[0].expand(cfg.n_heads, m.kv_lora))
+    o = torch.einsum("bshc,chv->bshv", ctx, tp["wuv"])
+    close(torch.einsum("bshv,hvd->bsd", o, tp["wo"]), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_mla_decode_on_cpu_takes_the_plain_core(monkeypatch, dtype):
+    # CPU tensors never reach the kernel, in float32 or bf16: the plain
+    # core runs once a call and the kernel's launch count stays 0; the
+    # kernel's wrapper refuses CPU tensors outright.
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    cfg, p, rng = _mla_case(4)
+    m, t = cfg.mla, 8
+    tp = lm.tree_map(lambda a: torch.from_numpy(a).to(dtype), p)
+    cache = {"c": torch.zeros((2, t, m.kv_lora), dtype=dtype),
+             "kr": torch.zeros((2, t, m.rope_dim), dtype=dtype)}
+    x = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(
+        np.float32)).to(dtype)
+    plain = []
+    real = attn.mla_attend
+    monkeypatch.setattr(attn, "mla_attend",
+                        lambda *a: plain.append(1) or real(*a))
+    mla_ops.LAUNCHES.clear()
+    out, _ = attn.mla_decode(tp, x, cfg, cache, torch.tensor([0, 5]))
+    assert out.shape == (2, 1, cfg.d_model) and out.dtype == dtype
+    assert plain == [1] and mla_ops.launches_total() == 0
+    q = torch.zeros((2, cfg.n_heads, m.kv_lora), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mla_ops.attend(q, q[..., :m.rope_dim], cache["c"], cache["kr"],
+                       torch.tensor([0, 5]), 1.0)
+
+
 def test_engine_copies_the_prefix_cache_into_its_slot():
     cfg = get_smoke("deepseek-v3-671b")
     params = init_params(cfg, seed=1, device="cpu")
